@@ -1,0 +1,17 @@
+"""Program model, sync insertion, enumeration, features, executor."""
+from repro_torch.core.dag import (BoundOp, CommRole, Graph, Op, OpKind,
+                                  Schedule, canonicalize_streams,
+                                  halo3d_dag, spmv_dag, spmv_dag_fine,
+                                  validate_schedule)
+from repro_torch.core.enumerate import count_schedules, enumerate_schedules
+from repro_torch.core.features import (DegenerateFeatureSpaceError, Feature,
+                                       FeatureMatrix, featurize)
+from repro_torch.core.sync import ExpandedItem, expand, expanded_names
+
+__all__ = [
+    "BoundOp", "CommRole", "Graph", "Op", "OpKind", "Schedule",
+    "canonicalize_streams", "halo3d_dag", "spmv_dag", "spmv_dag_fine",
+    "validate_schedule", "count_schedules", "enumerate_schedules",
+    "DegenerateFeatureSpaceError", "Feature", "FeatureMatrix", "featurize",
+    "ExpandedItem", "expand", "expanded_names",
+]

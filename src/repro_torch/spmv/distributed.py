@@ -1,0 +1,198 @@
+"""The paper's distributed SpMV on one device, one process playing R ranks.
+
+One H100 cannot host several NCCL ranks, so all R ranks' buffers live on
+the one card and the halo exchange is device-to-device copies on a
+dedicated comm stream. Each rank's halo is [left block, right block]
+(the JAX package's ``_halo_exchange``): rank r sends its x block to its
+right neighbour's left slot and to its left neighbour's right slot.
+
+One launch per DAG op covers all ranks: the ranks' ELL arrays are
+stacked K-major over the rank-major row axis, local columns offset by
+``rank * m`` into the whole x and halo columns by ``rank * 2m`` into
+the stacked halo buffer, once, at set-up. The DAG's vertices
+(:func:`repro_torch.core.dag.spmv_dag`) then map to:
+
+    Pack      pack kernel: each rank's send buffer from its x block
+    PostSend  enqueue the 2R halo copies on the comm stream, record an
+              event (the host does not wait)
+    PostRecv  nothing: the halo buffer is preallocated
+    WaitSend  host ``event.synchronize()`` on the copies
+    WaitRecv  the same: in one process our receives are the
+              neighbours' sends, i.e. those very copies
+    yL        ELL SpMV kernel over the local parts
+    yR        ELL SpMV kernel over the halo parts
+
+and y = yL + yR. Every buffer is allocated once here, so no op
+allocates memory that crosses streams, and none of them synchronises
+beyond what its vertex means: ordering comes from the schedule's sync
+items alone.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.dag import spmv_dag
+from repro_torch.core.executor import OpImpl, build_runner, op_impl
+from repro_torch.device import resolve_device
+from repro_torch.engine.wallclock import reference_schedule
+from repro_torch.kernels.pack.ops import pack
+from repro_torch.kernels.spmv.ops import ell_matvec_t
+from repro_torch.spmv.matrix import RankPartition, stack_partitions
+
+
+class DistributedSpmv:
+    """Device state of the R-rank SpMV and the DAG's op implementations.
+
+    Build it with :func:`from_reference`. ``x`` is the input the ops
+    read; ``sendbuf``, ``halo``, ``yL`` and ``yR`` are written by them.
+    """
+
+    def __init__(self, local_vals_t: torch.Tensor,
+                 local_cols_t: torch.Tensor,
+                 remote_vals_t: torch.Tensor,
+                 remote_cols_t: torch.Tensor,
+                 x: torch.Tensor, n_ranks: int):
+        self.device = x.device
+        self.n_ranks = n_ranks
+        self.m = x.numel() // n_ranks
+        self.local = (local_vals_t, local_cols_t)
+        self.remote = (remote_vals_t, remote_cols_t)
+        self.x = x
+        n, dev = x.numel(), x.device
+        # Each rank sends its whole block (half-bandwidth == m); the
+        # kernel takes any index set.
+        self.send_idx = torch.arange(n, dtype=torch.int32, device=dev)
+        self.sendbuf = torch.empty(n, dtype=x.dtype, device=dev)
+        self.halo = torch.empty(2 * n, dtype=x.dtype, device=dev)
+        self.yL = torch.empty(n, dtype=torch.float32, device=dev)
+        self.yR = torch.empty(n, dtype=torch.float32, device=dev)
+        # High priority: drawn from another pool than the executor's
+        # schedule streams, so a copy never lands on a compute stream
+        # (which would order it after Pack without any sync).
+        self.comm = torch.cuda.Stream(device=dev, priority=-1) \
+            if dev.type == "cuda" else None
+
+    def poison(self) -> None:
+        """Fill every buffer the ops write with NaN, so that a run that
+        reads before a write cannot pass on an earlier run's values."""
+        for t in (self.sendbuf, self.halo, self.yL, self.yR):
+            t.fill_(float("nan"))
+
+    # -- the DAG's ops -------------------------------------------------------
+    def pack(self, x: torch.Tensor) -> torch.Tensor:
+        return pack(x, self.send_idx, out=self.sendbuf)
+
+    def post_send(self, sendbuf: torch.Tensor):
+        m, r_n = self.m, self.n_ranks
+        blocks = sendbuf.view(r_n, m)
+        halo = self.halo.view(r_n, 2, m)
+
+        def copies() -> None:
+            for r in range(r_n):
+                halo[(r + 1) % r_n, 0].copy_(blocks[r], non_blocking=True)
+                halo[(r - 1) % r_n, 1].copy_(blocks[r], non_blocking=True)
+
+        if self.comm is None:
+            copies()
+            return None
+        with torch.cuda.stream(self.comm):
+            copies()
+        done = torch.cuda.Event()
+        done.record(self.comm)
+        return done
+
+    def post_recv(self) -> torch.Tensor:
+        return self.halo
+
+    @staticmethod
+    def wait(done) -> None:
+        if done is not None:
+            done.synchronize()
+
+    def wait_recv(self, done, halo: torch.Tensor) -> torch.Tensor:
+        self.wait(done)
+        return halo
+
+    def multiply_local(self, x: torch.Tensor) -> torch.Tensor:
+        return ell_matvec_t(*self.local, x, out=self.yL)
+
+    def multiply_remote(self, halo: torch.Tensor) -> torch.Tensor:
+        return ell_matvec_t(*self.remote, halo, out=self.yR)
+
+    def impls(self) -> dict[str, OpImpl]:
+        """Op implementations for the vertices of ``spmv_dag()``."""
+        return {
+            "Pack": op_impl(self.pack, ["x"], ["sendbuf"]),
+            "PostSend": op_impl(self.post_send, ["sendbuf"], ["sent"]),
+            "PostRecv": op_impl(self.post_recv, [], ["halo"]),
+            "WaitSend": op_impl(self.wait, ["sent"], []),
+            "WaitRecv": op_impl(self.wait_recv, ["sent", "halo"], ["xR"]),
+            "yL": op_impl(self.multiply_local, ["x"], ["yL"]),
+            "yR": op_impl(self.multiply_remote, ["xR"], ["yR"]),
+        }
+
+    def env(self) -> dict:
+        """The runner's initial environment."""
+        return {"x": self.x}
+
+
+def from_reference(stacked: dict[str, np.ndarray], x: np.ndarray,
+                   device: "str | torch.device | None" = None
+                   ) -> DistributedSpmv:
+    """Device state from :func:`repro_torch.spmv.matrix.stack_partitions`'
+    arrays (leading rank axis, the JAX package's shard_map layout) and
+    the global x (R*m,)."""
+    dev = resolve_device(device)
+    r_n, m, _ = stacked["local_vals"].shape
+    x = np.asarray(x, dtype=np.float32).reshape(-1)
+    if x.size != r_n * m:
+        raise ValueError(f"x has {x.size} entries, the partition "
+                         f"{r_n} x {m} rows")
+    rank = np.arange(r_n, dtype=np.int64)[:, None, None]
+
+    def ell_t(vals: np.ndarray, cols: np.ndarray, width: int):
+        if cols.size and (cols.min() < 0 or cols.max() >= width):
+            raise ValueError(f"column index outside [0, {width})")
+        k = vals.shape[2]
+        gcols = (cols.astype(np.int64) + rank * width).astype(np.int32)
+        return (torch.from_numpy(np.ascontiguousarray(
+                    vals.reshape(r_n * m, k).T)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(
+                    gcols.reshape(r_n * m, k).T)).to(dev))
+
+    lv, lc = ell_t(stacked["local_vals"], stacked["local_cols"], m)
+    rv, rc = ell_t(stacked["remote_vals"], stacked["remote_cols"], 2 * m)
+    return DistributedSpmv(lv, lc, rv, rc, torch.from_numpy(x).to(dev),
+                           r_n)
+
+
+def make_distributed_spmv(parts: list[RankPartition],
+                          device: "str | torch.device | None" = None
+                          ) -> Callable[[np.ndarray], np.ndarray]:
+    """``run(x) -> y`` for the partitioned matrix: one direct SpMV step.
+
+    Runs the DAG's reference schedule (topological order, one stream)
+    through the executor and returns y = yL + yR on the host.
+    """
+    r_n, m = len(parts), parts[0].m
+    spmv = from_reference(stack_partitions(parts),
+                          np.zeros(r_n * m, np.float32), device)
+    g = spmv_dag()
+    runner = build_runner(g, reference_schedule(g), spmv.impls(),
+                          spmv.device)
+    cuda = spmv.device.type == "cuda"
+
+    def run(x: np.ndarray) -> np.ndarray:
+        spmv.x.copy_(torch.from_numpy(
+            np.asarray(x, dtype=np.float32).reshape(-1)))
+        if cuda:
+            torch.cuda.synchronize(spmv.device)
+        env = runner(spmv.env())
+        if cuda:
+            torch.cuda.synchronize(spmv.device)
+        return (env["yL"] + env["yR"]).cpu().numpy()
+
+    return run

@@ -1,0 +1,164 @@
+"""The slice as a whole on the CPU: the port's 4-rank SpMV against the
+JAX package's shard_map SpMV, every schedule of the SpMV DAG through the
+executor and the value gate, the quickstart chain, and entry points
+that refuse to fall back to the CPU."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch.core as C  # noqa: E402
+from repro_torch.core.executor import build_runner, op_impl, run_items  # noqa: E402,E501
+from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.engine.wallclock import (ExecutorEvaluator,  # noqa: E402
+                                          reference_schedule)
+from repro_torch.spmv.distributed import (from_reference,  # noqa: E402
+                                          make_distributed_spmv)
+from repro_torch.spmv.matrix import (band_matrix, partition,  # noqa: E402
+                                     stack_partitions)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N, NNZ, HB = 1024, 8192, 256
+
+
+@pytest.fixture(scope="module")
+def problem():
+    A = band_matrix(n=N, nnz=NNZ, half_bandwidth=HB, seed=1)
+    x = np.random.default_rng(2).standard_normal(N).astype(np.float32)
+    return A, x, partition(A, 4)
+
+
+def _jax_distributed_y(x_path, y_path):
+    """The JAX package's shard_map SpMV over 4 CPU devices, in a
+    subprocess (the device count is fixed before JAX starts)."""
+    code = f"""
+import numpy as np, jax
+from jax.sharding import Mesh
+from repro.spmv.matrix import band_matrix, partition, stack_partitions
+from repro.spmv.distributed import make_distributed_spmv
+A = band_matrix(n={N}, nnz={NNZ}, half_bandwidth={HB}, seed=1)
+x = np.load({x_path!r})
+st = stack_partitions(partition(A, 4))
+mesh = Mesh(np.array(jax.devices()[:4]), ("ranks",))
+run = make_distributed_spmv(mesh, use_kernel=True)
+y = run(st["local_vals"], st["local_cols"], st["remote_vals"],
+        st["remote_cols"], x.reshape(4, -1))
+np.save({y_path!r}, np.asarray(y).reshape(-1))
+"""
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=560)
+    assert out.returncode == 0, out.stderr[-4000:]
+
+
+def test_four_rank_spmv_matches_jax_shard_map(problem, tmp_path):
+    A, x, parts = problem
+    np.save(tmp_path / "x.npy", x)
+    _jax_distributed_y(str(tmp_path / "x.npy"), str(tmp_path / "y.npy"))
+    y_jax = np.load(tmp_path / "y.npy")
+    y = make_distributed_spmv(parts, device="cpu")(x)
+    ref = A.matvec(x)
+    scale = np.abs(ref).max()
+    assert np.abs(y - y_jax).max() / scale < 1e-5
+    assert np.abs(y - ref).max() / scale < 1e-5
+
+
+def test_from_reference_layout(problem):
+    """Stacked K-major arrays with rank-offset columns, built from the
+    very arrays the JAX package's shard_map consumes."""
+    A, x, parts = problem
+    st = stack_partitions(parts)
+    spmv = from_reference(st, x, "cpu")
+    r_n, m, kl = st["local_vals"].shape
+    lv, lc = spmv.local
+    assert lv.shape == (kl, r_n * m) and lc.dtype == torch.int32
+    for r in range(r_n):
+        np.testing.assert_array_equal(lv[:, r * m:(r + 1) * m].numpy(),
+                                      st["local_vals"][r].T)
+        np.testing.assert_array_equal(lc[:, r * m:(r + 1) * m].numpy(),
+                                      st["local_cols"][r].T + r * m)
+        np.testing.assert_array_equal(
+            spmv.remote[1][:, r * m:(r + 1) * m].numpy(),
+            st["remote_cols"][r].T + r * 2 * m)
+    with pytest.raises(ValueError):
+        from_reference(st, x[:-4], "cpu")
+
+
+def _evaluator(problem, **kw):
+    A, x, parts = problem
+    spmv = from_reference(stack_partitions(parts), x, "cpu")
+    g = C.spmv_dag()
+    ev = ExecutorEvaluator(g, impls=spmv.impls(), env=spmv.env(),
+                           reset=spmv.poison, device="cpu", **kw)
+    return g, spmv, ev
+
+
+def test_every_schedule_passes_the_gate(problem):
+    A, x, _ = problem
+    g, _, ev = _evaluator(problem, repeats=1, warmup=1)
+    scheds = list(C.enumerate_schedules(g, 2))
+    times = ev.evaluate(scheds)
+    assert len(scheds) == 280 and ev.n_checked == 280
+    assert all(t > 0 for t in times)
+    ref = ev.reference_outputs()
+    y = ref["yL"].astype(np.float64) + ref["yR"]
+    oracle = A.matvec(x)
+    assert np.abs(y - oracle).max() / np.abs(oracle).max() < 1e-5
+    assert ev.objective_key().startswith("torch_wallclock:cpu:")
+
+
+def test_gate_catches_a_skipped_exchange(problem):
+    """With PostSend's halo copies left out, the poisoned halo reaches
+    yR and the gate fails; the intact impls pass."""
+    g, _, ev = _evaluator(problem)
+    items = C.expand(g, reference_schedule(g))
+    ev.check(run_items(g, items, ev.impls, "cpu"), "intact")
+    broken = dict(ev.impls,
+                  PostSend=op_impl(lambda buf: None, ["sendbuf"], ["sent"]))
+    with pytest.raises(AssertionError, match="diverged"):
+        ev.check(run_items(g, items, broken, "cpu"), "without copies")
+    assert ev.n_checked == 1
+
+
+def test_quickstart_chain_yields_rules(capsys):
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    try:
+        import torch_quickstart
+    finally:
+        sys.path.pop(0)
+    torch_quickstart.main(["--device", "cpu", "--n", str(N), "--nnz",
+                           str(NNZ), "--iters", "120", "--repeats", "2"])
+    out = capsys.readouterr().out
+    assert "torch_wallclock:cpu" in out
+    assert "passed the value gate" in out
+    assert "## performance class 1" in out
+
+
+def test_entry_points_raise_without_cuda(problem, monkeypatch):
+    """device=None means CUDA; without a card it raises, never runs on
+    the CPU quietly."""
+    A, x, parts = problem
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = C.spmv_dag()
+    st = stack_partitions(parts)
+    cpu = from_reference(st, x, "cpu")
+    calls = [
+        lambda: resolve_device(),
+        lambda: from_reference(st, x),
+        lambda: make_distributed_spmv(parts),
+        lambda: build_runner(g, reference_schedule(g), cpu.impls()),
+        lambda: ExecutorEvaluator(g, impls=cpu.impls(), env=cpu.env(),
+                                  reset=cpu.poison),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    with pytest.raises(ValueError):
+        resolve_device("meta")
