@@ -122,9 +122,14 @@ def phase_kernels(spmv, dev) -> dict:
         if not rel <= 1e-5:
             raise AssertionError(f"ell_spmv {name}: rel err {rel} > 1e-5")
         k, n = vt.shape
-        nnz = int((vt != 0).sum())
-        n_bytes = k * n * (vt.element_size() + 4) + \
-            xin.numel() * xin.element_size() + n * 4
+        nz = vt != 0
+        nnz = int(nz.sum())
+        # The product's own bytes: each non-zero's value and column, each
+        # x entry it touches, y. The kernel also reads the K*N - nnz
+        # zero slots that pad every row to K (reported beside it).
+        x_bytes = int(torch.unique(ct[nz]).numel()) * xin.element_size()
+        n_bytes = nnz * (vt.element_size() + 4) + x_bytes + n * 4
+        slot_bytes = k * n * (vt.element_size() + 4) + x_bytes + n * 4
         b, by = bound_ms(n_bytes, 2.0 * nnz)
         csr = csr_of(vt, ct, xin.numel())
         try:
@@ -134,7 +139,9 @@ def phase_kernels(spmv, dev) -> dict:
             lib, lib_err = None, str(e)[:200]
         calls.append({
             "op": name, "K": k, "N": n, "nx": xin.numel(), "nnz": nnz,
-            "bytes": n_bytes, "max_abs_err": err, "rel_err": rel,
+            "bytes": n_bytes, "slot_bytes": slot_bytes,
+            "bound_ms_slots": bound_ms(slot_bytes, 2.0 * nnz)[0],
+            "max_abs_err": err, "rel_err": rel,
             "ms": time_cuda(lambda: ell_matvec_t(vt, ct, xin, out=out)),
             "plain_ms": time_cuda(lambda: ell_spmv_plain(vt, ct, xin)),
             "library_ms": lib, "library_error": lib_err,

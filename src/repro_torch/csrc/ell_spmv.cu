@@ -15,8 +15,11 @@
 // Design: one thread per row n over the K-major ("ELL-T") layout, so a
 // warp's 32 threads read 32 neighbouring slots of one k: every vals/cols
 // load is a 128-byte coalesced line. x[cols] goes through __ldg. The sum
-// is float32 in k order 0..K-1. Column indices are clamped into [0, nx),
-// so a bad index cannot read outside x. No shared memory, nothing staged:
+// is float32 in k order 0..K-1. Column indices must lie in [0, nx): the
+// kernel does not check them. A bad index has no one meaning to copy:
+// the plain version raises on it, the JAX gather wraps negative ones
+// and clamps the rest. The distributed SpMV checks its columns once,
+// when it builds the matrix. No shared memory, nothing staged:
 // the simple kernel comes first; vector loads and cp.async staging of x
 // are later work.
 #include <cuda_runtime.h>
@@ -36,14 +39,13 @@ __global__ void ell_spmv_kernel(const T* __restrict__ vals_t,
                                 const int32_t* __restrict__ cols_t,
                                 const T* __restrict__ x,
                                 float* __restrict__ y,
-                                int K, int N, int nx) {
+                                int K, int N) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   float acc = 0.0f;
   for (int k = 0; k < K; ++k) {
     const size_t off = static_cast<size_t>(k) * N + n;
-    int c = __ldg(cols_t + off);
-    c = min(max(c, 0), nx - 1);
+    const int c = __ldg(cols_t + off);
     acc += load_f(vals_t + off) * load_f(x + c);
   }
   y[n] = acc;
@@ -53,12 +55,12 @@ constexpr int kThreads = 256;
 
 template <typename T>
 cudaError_t launch(const void* vals_t, const void* cols_t, const void* x,
-                   void* y, int K, int N, int nx, void* stream) {
+                   void* y, int K, int N, void* stream) {
   const int blocks = (N + kThreads - 1) / kThreads;
   ell_spmv_kernel<T><<<blocks, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(vals_t), static_cast<const int32_t*>(cols_t),
-      static_cast<const T*>(x), static_cast<float*>(y), K, N, nx);
+      static_cast<const T*>(x), static_cast<float*>(y), K, N);
   return cudaGetLastError();
 }
 
@@ -67,15 +69,15 @@ cudaError_t launch(const void* vals_t, const void* cols_t, const void* x,
 extern "C" {
 
 int ell_spmv_f32(const void* vals_t, const void* cols_t, const void* x,
-                 void* y, int K, int N, int nx, void* stream) {
+                 void* y, int K, int N, void* stream) {
   return static_cast<int>(
-      launch<float>(vals_t, cols_t, x, y, K, N, nx, stream));
+      launch<float>(vals_t, cols_t, x, y, K, N, stream));
 }
 
 int ell_spmv_bf16(const void* vals_t, const void* cols_t, const void* x,
-                  void* y, int K, int N, int nx, void* stream) {
+                  void* y, int K, int N, void* stream) {
   return static_cast<int>(
-      launch<uint16_t>(vals_t, cols_t, x, y, K, N, nx, stream));
+      launch<uint16_t>(vals_t, cols_t, x, y, K, N, stream));
 }
 
 }  // extern "C"

@@ -143,20 +143,26 @@ class ExecutorEvaluator(EvaluatorBase):
             context=f" under {what} — a sync failed to order two ops")
         self.n_checked += 1
 
-    def _timed(self, run: Callable[[dict], dict]) -> float:
+    def timed(self, run: Callable[[dict], dict]) -> float:
+        """Host seconds of one call of ``run``, the device drained on
+        both sides."""
         self._sync()
         t0 = time.perf_counter()
         run(self.env)
         self._sync()
         return time.perf_counter() - t0
 
+    def measure(self, run: Callable[[dict], dict]) -> list[float]:
+        """Seconds of each of ``repeats`` timed calls of ``run``, after
+        ``warmup - 1`` untimed ones (the gated run is the first)."""
+        for _ in range(self.warmup - 1):
+            self.timed(run)
+        return [self.timed(run) for _ in range(self.repeats)]
+
     def _measure_batch(self, schedules: Sequence[Schedule]) -> list[float]:
         out: list[float] = []
         for sched in schedules:
             run = build_runner(self.graph, sched, self.impls, self.device)
             self.check(run, f"schedule {[str(i) for i in sched.items]}")
-            for _ in range(self.warmup - 1):
-                self._timed(run)
-            out.append(statistics.median(
-                self._timed(run) for _ in range(self.repeats)))
+            out.append(statistics.median(self.measure(run)))
         return out

@@ -21,7 +21,8 @@ def ell_spmv(vals_t: torch.Tensor, cols_t: torch.Tensor, x: torch.Tensor,
     ``vals_t`` (K, N) float32 or bfloat16, ``cols_t`` (K, N) int32,
     ``x`` (nx,) of ``vals_t``'s dtype, ``out`` (N,) float32; all
     contiguous on one CUDA device. Launches on the current stream and
-    does not synchronise; columns are clamped into [0, nx).
+    does not synchronise. Columns must lie in [0, nx); they are not
+    checked here (that would synchronise), so a bad one reads outside x.
     """
     suffix = FLOAT_SUFFIX.get(vals_t.dtype)
     if suffix is None or x.dtype != vals_t.dtype:
@@ -47,9 +48,9 @@ def ell_spmv(vals_t: torch.Tensor, cols_t: torch.Tensor, x: torch.Tensor,
     fn = _fns.get(suffix)
     if fn is None:
         fn = _fns[suffix] = build.declare(
-            build.library("ell_spmv"), f"ell_spmv_{suffix}", 4, 3)
+            build.library("ell_spmv"), f"ell_spmv_{suffix}", 4, 2)
     err = fn(vals_t.data_ptr(), cols_t.data_ptr(), x.data_ptr(),
-             out.data_ptr(), k, n, x.numel(), stream_handle(x.device))
+             out.data_ptr(), k, n, stream_handle(x.device))
     build.check(err, "ell_spmv")
     ell_spmv.launches += 1
     return out

@@ -16,7 +16,10 @@ __all__ = ["ell_matvec", "ell_matvec_t", "ell_spmv_plain",
 
 def ell_spmv_plain(vals_t: torch.Tensor, cols_t: torch.Tensor,
                    x: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: float32 (N,) result."""
+    """The kernel's function in plain PyTorch: float32 (N,) result.
+
+    Columns must lie in [0, len(x)); indexing raises on one that does
+    not."""
     return (vals_t.float() * x.float()[cols_t.long()]).sum(dim=0)
 
 

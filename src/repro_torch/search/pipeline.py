@@ -1,10 +1,9 @@
 """The search loop: strategy x evaluator -> deduplicated observations.
 
 :func:`run_search` is the JAX package's ``SearchDriver`` loop with no
-acquisition and no sinks: the same budget clamping, the same stall rule
-for unbounded runs, and the same first-observation-per-canonical-
-schedule record, so the same strategy, seed and times give the same
-result.
+acquisition and no sinks: the same budget clamping and the same
+first-observation-per-canonical-schedule record, so the same strategy,
+seed and times give the same result.
 """
 from __future__ import annotations
 
@@ -15,10 +14,6 @@ import numpy as np
 from repro_torch.core.dag import Graph, Schedule
 from repro_torch.engine.base import EvaluatorBase
 from repro_torch.space.schedule import canonical_key
-
-# An unbounded run (budget=None) stops after this many consecutive
-# proposals without a fresh measurement (a strategy that never exhausts).
-STALL_LIMIT = 1000
 
 
 def tie_key(schedule: Schedule) -> tuple:
@@ -56,15 +51,13 @@ class SearchResult:
 
 
 def run_search(graph: Graph, strategy, evaluator: EvaluatorBase,
-               budget: int | None = 2000,
-               batch_size: int = 1) -> SearchResult:
+               budget: int, batch_size: int = 1) -> SearchResult:
     """Drive ``strategy`` (``propose``/``observe``) for up to ``budget``
     proposals, each measured by ``evaluator``.
 
-    ``budget`` counts proposals, not distinct schedules; ``None`` runs
-    until the strategy proposes nothing or :data:`STALL_LIMIT`
-    consecutive proposals bring no fresh measurement. ``batch_size`` schedules are
-    asked for per ``propose``; 1 is the paper's strictly sequential
+    ``budget`` counts proposals, not distinct schedules; the run ends
+    early when the strategy proposes nothing. ``batch_size`` schedules
+    are asked for per ``propose``; 1 is the paper's strictly sequential
     loop. A strategy that returns more than asked is clamped to the
     remaining budget. Every proposal is observed; the result keeps the
     first observation per canonical schedule.
@@ -75,28 +68,18 @@ def run_search(graph: Graph, strategy, evaluator: EvaluatorBase,
     times: list[float] = []
     seen: set[tuple] = set()
     n_proposed = 0
-    stalled = 0
-    while budget is None or n_proposed < budget:
-        ask = batch_size if budget is None else \
-            min(batch_size, budget - n_proposed)
+    while n_proposed < budget:
+        ask = min(batch_size, budget - n_proposed)
         batch = strategy.propose(ask)[:ask]
         if not batch:
             break
         n_proposed += len(batch)
-        fresh0 = ev.cache_misses
         for schedule, (key, t) in zip(batch, ev.evaluate_keyed(batch)):
             strategy.observe(schedule, float(t))
             if key not in seen:
                 seen.add(key)
                 schedules.append(schedule)
                 times.append(float(t))
-        if budget is None:
-            if ev.cache_misses == fresh0:
-                stalled += len(batch)
-                if stalled >= STALL_LIMIT:
-                    break
-            else:
-                stalled = 0
     return SearchResult(graph=graph, schedules=schedules, times=times,
                         n_proposed=n_proposed,
                         cache_hits=ev.cache_hits - hits0,

@@ -3,6 +3,9 @@ plain PyTorch version, the launch counters, and the two race checks (a
 removed sync must fail the value gate). Skipped without a CUDA device;
 on the card: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``."""
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -17,6 +20,10 @@ from repro_torch.spmv.matrix import (band_matrix, partition,  # noqa: E402
                                      stack_partitions)
 
 pytestmark = pytest.mark.cuda
+
+# chip_smoke.py lives at the repository root, which pytest does not put
+# on sys.path by itself (tests/ is not a package).
+REPO_ROOT = str(Path(__file__).resolve().parents[1])
 
 
 @pytest.fixture
@@ -90,6 +97,8 @@ def test_removed_syncs_are_caught_by_the_gate(small_spmv, dev):
     """Pack delayed and CES-b4-PostSend removed; a producer/consumer pair
     on two streams with its CSWE removed: both fail the value gate, and
     both pass intact (chip_smoke.py's race phase)."""
+    if REPO_ROOT not in sys.path:
+        sys.path.insert(0, REPO_ROOT)
     import chip_smoke
     _, _, spmv = small_spmv
     checks = chip_smoke.phase_race(spmv, dev)["checks"]

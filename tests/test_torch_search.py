@@ -41,7 +41,7 @@ def makespans():
 
 @pytest.mark.parametrize("budget,batch_size,seed", [
     (200, 1, 0), (200, 1, 1), (60, 1, 2), (120, 4, 0), (150, 7, 3),
-    (None, 1, 0)])
+    (1000, 1, 0)])
 def test_mcts_trajectory_matches_reference(makespans, budget, batch_size,
                                            seed):
     rg, tg = RC.spmv_dag(), TC.spmv_dag()
