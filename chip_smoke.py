@@ -19,6 +19,17 @@ Phases, each printing one JSON line:
   main_path    the paper's loop: spmv_dag -> MCTS (budget 400) measured
                on real streams -> labels -> features -> Algorithm 1 ->
                rules, with every kernel's launch count over that run
+  onehot_path  ell_matvec_onehot, the narrow-band SpMV's entry point, once
+               at the paper's n and nnz on a band of half-width 512 (the
+               kernel is on no path of the JAX package), with its launch
+               count
+  autotune     kernel autotuning: the flash_attention space at one
+               attention layer of qwen2.5-32b (1 x 40 x 4096 x 128, f32,
+               causal) -> wallclock evaluator -> MCTS over the 16
+               (block_q, block_k) pairs, every one gated -> distill; a
+               second sweep (Spearman rho of the two), a warm replay from
+               an EvalStore (zero measurements), and the spmv_mulsum and
+               pack spaces swept exhaustively
 
 Then the card's ``name, power.limit``, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -42,6 +53,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside tensor cores
 PAPER_N, PAPER_NNZ, RANKS = 150_000, 1_500_000, 4
+# One attention layer of qwen2.5-32b (n_heads=40, d_model=5120) at the
+# train_4k length; the flash_attention space's instance.
+ATTN = {"batch": 1, "heads": 40, "seq": 4096, "head_dim": 128}
+ONEHOT_HB, ONEHOT_BLOCK_R = 512, 256
 SLEEP_CYCLES = 50_000_000      # ~25 ms of device sleep (queues launches, delays a producer)
 
 
@@ -198,6 +213,298 @@ def phase_kernels(spmv, dev) -> dict:
         sweep.append({"kernel": "pack", "n": n, "m": m,
                       "dtype": str(dtype), "exact": True})
     return {"ell_spmv": calls, "pack": [pack_call], "sweep": sweep}
+
+
+def attention_inputs(dev, batch, heads, seq, head_dim, seed=0):
+    """q, k, v as the flash_attention space draws them (float32)."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(
+        (batch, heads, seq, head_dim)).astype(np.float32)).to(dev)
+        for _ in range(3)]
+
+
+def phase_attention(dev) -> dict:
+    """The flash-attention kernel at the autotune instance's shapes
+    (default blocks 128 x 128) against its plain version and SDPA, and
+    on the reference sweep's cases (through ``mha``'s padding) against
+    the plain path of the same wrapper on the CPU."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention.ops import attention_plain, mha
+
+    b, h, s, d = (ATTN[k] for k in ("batch", "heads", "seq", "head_dim"))
+    q, k, v = attention_inputs(dev, b, h, s, d)
+    qf, kf, vf = (t.reshape(b * h, s, d) for t in (q, k, v))
+    out = torch.empty_like(qf)
+    scale = d ** -0.5
+
+    def kernel():
+        return fa_k.flash_attention(qf, kf, vf, out, causal=True,
+                                    block_q=128, block_k=128, scale=scale)
+
+    got = kernel().clone()
+    plain = attention_plain(qf, kf, vf, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, plain)
+    if not err <= 2e-5:
+        raise AssertionError(f"flash_attention: max abs err {err} > 2e-5")
+    # Useful causal work: query i meets i + 1 keys (S = Sq = Skv), two
+    # flops per multiply-add in q.k and in p.v; each of q, k, v read
+    # once and the output written once.
+    pairs = b * h * s * (s + 1) / 2
+    flops = 4.0 * pairs * d
+    n_bytes = 4 * q.numel() * q.element_size()
+    bnd, by = bound_ms(n_bytes, flops)
+    call = {
+        "op": "mha", "shape": [b, h, s, d], "dtype": "float32",
+        "causal": True, "block_q": 128, "block_k": 128, "flops": flops,
+        "bytes": n_bytes, "max_abs_err": err, "rel_err": rel,
+        "ms": time_cuda(kernel, iters=10),
+        "plain_ms": time_cuda(lambda: attention_plain(
+            qf, kf, vf, causal=True, scale=scale), iters=5),
+        "library_ms": time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=10),
+        "bound_ms": bnd, "bound_by": by}
+    del plain, got
+
+    # tests/test_kernels.py:118-156: causal sweep (ragged S, bf16, a
+    # head dim padded to 64), cross-attention, decode alignment.
+    sweep = []
+    rng = np.random.default_rng(0)
+    cases = [((2, 3, 256, 64), (2, 3, 256, 64), torch.float32, True),
+             ((1, 2, 300, 64), (1, 2, 300, 64), torch.float32, True),
+             ((2, 2, 256, 128), (2, 2, 256, 128), torch.bfloat16, True),
+             ((1, 2, 64, 48), (1, 2, 64, 48), torch.float32, True),
+             ((1, 2, 128, 64), (1, 2, 256, 64), torch.float32, False),
+             ((1, 1, 128, 64), (1, 1, 384, 64), torch.float32, True)]
+    for qs, ks, dtype, causal in cases:
+        a = [rng.standard_normal(sh).astype(np.float32)
+             for sh in (qs, ks, ks)]
+        on_card = mha(*(torch.from_numpy(t).to(dev, dtype) for t in a),
+                      causal=causal)
+        on_cpu = mha(*(torch.from_numpy(t).to(dtype) for t in a),
+                     causal=causal)
+        e = float((on_card.float().cpu() - on_cpu.float()).abs().max())
+        tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+        if not e <= tol:
+            raise AssertionError(f"mha {qs} {ks} {dtype}: {e} > {tol}")
+        sweep.append({"q": list(qs), "kv": list(ks), "dtype": str(dtype),
+                      "causal": causal, "max_abs_err": e})
+    return {"flash_attention": [call], "sweep": sweep}
+
+
+def onehot_matrix(dev):
+    """The paper's n and nnz on a narrow band (half-width 512)."""
+    from repro_torch.spmv.matrix import band_matrix
+
+    A = band_matrix(n=PAPER_N, nnz=PAPER_NNZ, half_bandwidth=ONEHOT_HB,
+                    seed=0)
+    x = np.random.default_rng(1).standard_normal(PAPER_N).astype(
+        np.float32)
+    return A, x, (torch.from_numpy(A.vals).to(dev),
+                  torch.from_numpy(A.cols).to(dev),
+                  torch.from_numpy(x).to(dev))
+
+
+def phase_onehot(dev) -> dict:
+    """The narrow-band kernel at the band matrix's shapes against its
+    plain version, beside ell_spmv and torch.mv on the same matrix, and
+    on the reference sweep's cases."""
+    from repro_torch.kernels.spmv.kernel import ell_onehot
+    from repro_torch.kernels.spmv.ops import (ell_matvec_onehot,
+                                              ell_matvec_t,
+                                              ell_onehot_plain,
+                                              onehot_operands)
+
+    A, x_np, (vals, cols, x) = onehot_matrix(dev)
+    br, window = ONEHOT_BLOCK_R, 2 * ONEHOT_HB + ONEHOT_BLOCK_R
+    vt, cwt, xp = onehot_operands(vals, cols, x, ONEHOT_HB, br)
+    out = torch.empty(vt.shape[1], dtype=torch.float32, device=dev)
+
+    def kernel():
+        return ell_onehot(vt, cwt, xp, out, window, br)
+
+    got = kernel().clone()
+    plain = ell_onehot_plain(vt, cwt, xp, window, br)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, plain)
+    if not rel <= 1e-5:
+        raise AssertionError(f"ell_onehot: rel err {rel} > 1e-5")
+    oracle = A.matvec(x_np)
+    y_rel = float(np.abs(got[:PAPER_N].cpu().numpy() - oracle).max() /
+                  np.abs(oracle).max())
+    if not y_rel <= 1e-5:
+        raise AssertionError(f"ell_onehot vs f64 oracle: {y_rel} > 1e-5")
+    k, n = vt.shape
+    nnz = int((vals != 0).sum())
+    # Each slot's value and window column once, x_pad once, y once.
+    n_bytes = k * n * 8 + xp.numel() * 4 + n * 4
+    bnd, by = bound_ms(n_bytes, 2.0 * nnz)
+    vals_t, cols_t = vals.T.contiguous(), cols.T.contiguous()
+    spmv_out = torch.empty(PAPER_N, dtype=torch.float32, device=dev)
+    csr = csr_of(vals_t, cols_t, PAPER_N)
+    call = {
+        "op": "ell_matvec_onehot", "K": k, "N": n, "nnz": nnz,
+        "half_bandwidth": ONEHOT_HB, "block_r": br, "window": window,
+        "bytes": n_bytes, "max_abs_err": err, "rel_err": rel,
+        "oracle_rel_err": y_rel,
+        "ms": time_cuda(kernel),
+        "plain_ms": time_cuda(lambda: ell_onehot_plain(vt, cwt, xp, window,
+                                                       br)),
+        "library_ms": time_cuda(lambda: torch.mv(csr, x)),
+        "ell_spmv_ms": time_cuda(lambda: ell_matvec_t(vals_t, cols_t, x,
+                                                      out=spmv_out)),
+        "bound_ms": bnd, "bound_by": by}
+
+    # tests/test_kernels.py:41-72, and a row count that is not a
+    # multiple of block_r.
+    sweep = []
+    for n_, k_, hb, block_r in ((256, 4, 32, 64), (512, 8, 64, 128),
+                                (384, 3, 48, 128), (300, 5, 40, 128)):
+        rng = np.random.default_rng(n_)
+        offs = rng.integers(-hb, hb + 1, size=(n_, k_))
+        c = ((np.arange(n_)[:, None] + offs) % n_).astype(np.int32)
+        va = rng.standard_normal((n_, k_)).astype(np.float32)
+        xx = rng.standard_normal(n_).astype(np.float32)
+        on_card = ell_matvec_onehot(*(torch.from_numpy(t).to(dev)
+                                      for t in (va, c, xx)), hb, block_r)
+        on_cpu = ell_matvec_onehot(*(torch.from_numpy(t)
+                                     for t in (va, c, xx)), hb, block_r)
+        _, r = rel_err(on_card.cpu(), on_cpu)
+        if not r <= 1e-5:
+            raise AssertionError(f"ell_onehot ({n_},{k_},{hb},{block_r}): "
+                                 f"{r}")
+        sweep.append({"n": n_, "k": k_, "hb": hb, "block_r": block_r,
+                      "rel_err": r})
+    return {"ell_onehot": [call], "sweep": sweep}
+
+
+def phase_onehot_path(dev) -> dict:
+    """One call of the narrow-band SpMV's entry point at full size."""
+    from repro_torch.kernels.spmv import kernel as spmv_k
+    from repro_torch.kernels.spmv.ops import ell_matvec_onehot
+
+    A, x_np, (vals, cols, x) = onehot_matrix(dev)
+    spmv_k.ell_onehot.launches = 0
+    y = ell_matvec_onehot(vals, cols, x, ONEHOT_HB, ONEHOT_BLOCK_R)
+    torch.cuda.synchronize()
+    launches = spmv_k.ell_onehot.launches
+    oracle = A.matvec(x_np)
+    rel = float(np.abs(y.cpu().numpy() - oracle).max() /
+                np.abs(oracle).max())
+    if not (rel <= 1e-5 and y.shape == (PAPER_N,) and launches == 1):
+        raise AssertionError(f"onehot path: rel {rel}, launches {launches}")
+    return {"launches": {"ell_onehot": launches}, "y_rel_err": rel}
+
+
+def spearman(a, b) -> float:
+    ra = np.argsort(np.argsort(a)).astype(np.float64)
+    rb = np.argsort(np.argsort(b)).astype(np.float64)
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def phase_autotune(dev) -> dict:
+    import tempfile
+
+    from repro_torch.engine import make_evaluator
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.pack import kernel as pack_k
+    from repro_torch.kernels.spmv import kernel as spmv_k
+    from repro_torch.rules import distill
+    from repro_torch.search import ExhaustiveSearch, MCTSSearch, run_search
+    from repro_torch.space import make_space
+
+    sp = make_space("flash_attention", **ATTN)
+    n_cand = sp.n_candidates()
+    out: dict = {"space": sp.signature, "candidates": n_cand}
+    # The gate's tolerance: float32 softmax over 4096 keys in two orders
+    # (online in the kernel, whole rows in the reference) differs by a
+    # few 1e-6 (the kernels phase's max_abs_err); the evaluator's
+    # default atol of 1e-6 is for small instances.
+    gate = {"repeats": 5, "warmup": 2, "atol": 1e-5}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "flash_attention.store")
+        ev = make_evaluator(sp, "wallclock", store_path=store, **gate)
+        fa_k.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        with ev:
+            res = run_search(sp, MCTSSearch(sp, seed=0), ev, budget=32)
+        wall = time.perf_counter() - t0
+        launches = fa_k.flash_attention.launches
+        if launches <= 0:
+            raise AssertionError("the flash-attention kernel never ran")
+        if not (len(res.schedules) == ev.n_checked == n_cand == 16):
+            raise AssertionError(f"{ev.n_checked} gated, "
+                                 f"{len(res.schedules)} of {n_cand} "
+                                 "candidates measured")
+        report = distill(res)
+        print(report.render(), flush=True)
+        if "performance class" not in report.render():
+            raise AssertionError("no rules table")
+        times = res.times_array()
+        best, t_best = res.best()
+        worst = res.schedules[int(times.argmax())]
+        out.update({
+            "objective": ev.objective_key(), "proposed": res.n_proposed,
+            "measured": res.cache_misses, "gated": ev.n_checked,
+            "best": sp.describe(best), "best_ms": t_best * 1e3,
+            "worst": sp.describe(worst),
+            "worst_ms": float(times.max()) * 1e3,
+            "times_ms": {sp.describe(c): t * 1e3
+                         for c, t in zip(res.schedules, res.times)},
+            "classes": report.labeling.n_classes,
+            "class_sizes": np.bincount(report.labeling.labels).tolist(),
+            "features": len(report.feature_matrix.features),
+            "tree_leaves": report.tree.n_leaves(),
+            "tree_depth": report.tree.depth(),
+            "tree_error": report.training_error, "search_wall_s": wall,
+            "launches": {"flash_attention": launches}})
+
+        # A second sweep with a fresh evaluator (no store): do the
+        # candidates rank the same?
+        ev2 = make_evaluator(sp, "wallclock", **gate)
+        res2 = run_search(sp, ExhaustiveSearch(sp), ev2, budget=n_cand)
+        again = dict(zip(res2.schedules, res2.times))
+        t2 = np.array([again[c] for c in res.schedules])
+        out["sweep2"] = {"best": sp.describe(res2.best()[0]),
+                         "best_ms": res2.best()[1] * 1e3,
+                         "worst_ms": float(t2.max()) * 1e3,
+                         "spearman_rho": spearman(times, t2)}
+
+        # Warm replay from the store: zero measurements.
+        n0 = fa_k.flash_attention.launches
+        ev3 = make_evaluator(sp, "wallclock", store_path=store, **gate)
+        with ev3:
+            warm = run_search(sp, MCTSSearch(sp, seed=0), ev3, budget=32)
+        if not (warm.cache_misses == 0 and warm.store_hits == n_cand and
+                warm.times == res.times and
+                fa_k.flash_attention.launches == n0):
+            raise AssertionError(
+                f"warm replay measured {warm.cache_misses}, "
+                f"{warm.store_hits} store hits")
+        out["warm_replay"] = {"measured": warm.cache_misses,
+                              "store_hits": warm.store_hits}
+
+    # The other two kernels' grids, swept exhaustively and gated.
+    for name, kw, counter in (
+            ("spmv_mulsum", {"n": PAPER_N, "k": 10}, spmv_k.ell_spmv),
+            ("pack", {"n": PAPER_N, "m": PAPER_N}, pack_k.pack)):
+        sp = make_space(name, **kw)
+        ev = make_evaluator(sp, "wallclock", repeats=20, warmup=3)
+        counter.launches = 0
+        r = run_search(sp, ExhaustiveSearch(sp), ev,
+                       budget=sp.n_candidates())
+        if ev.n_checked != sp.n_candidates() or counter.launches <= 0:
+            raise AssertionError(f"{name}: {ev.n_checked} gated, "
+                                 f"{counter.launches} launches")
+        b, tb = r.best()
+        out[name] = {"space": sp.signature, "best": sp.describe(b),
+                     "best_us": tb * 1e6,
+                     "times_us": {sp.describe(c): t * 1e6
+                                  for c, t in zip(r.schedules, r.times)},
+                     "gated": ev.n_checked, "launches": counter.launches}
+    return out
 
 
 def phase_race(spmv, dev) -> dict:
@@ -372,6 +679,10 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
 
     kern = phase_kernels(spmv, dev)
+    kern.update(phase_attention(dev))
+    onehot = phase_onehot(dev)
+    kern["sweep"] += onehot.pop("sweep")
+    kern.update(onehot)
     emit("kernels", **kern)
 
     y = make_distributed_spmv(parts, dev)(x)
@@ -384,11 +695,19 @@ def main() -> int:
     emit("race", **phase_race(spmv, dev))
     main_path = phase_main_path(spmv, A, x, dev)
     emit("main_path", **main_path)
+    del spmv
+    torch.cuda.empty_cache()
+    onehot_path = phase_onehot_path(dev)
+    emit("onehot_path", **onehot_path)
+    autotune = phase_autotune(dev)
+    emit("autotune", **autotune)
+    launches = {**main_path["launches"], **onehot_path["launches"],
+                **autotune["launches"]}
 
-    def entry(name, source, replaces, calls):
+    def entry(name, source, replaces, calls, path):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": main_path["launches"][name],
+                "replaces": replaces, "path": path,
+                "launches": launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in calls),
                 **{k: (None if any(c[k] is None for c in calls)
                        else sum(c[k] for c in calls))
@@ -398,9 +717,18 @@ def main() -> int:
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         entry("ell_spmv", "src/repro_torch/csrc/ell_spmv.cu",
-              "src/repro/kernels/spmv/kernel.py:49", kern["ell_spmv"]),
+              "src/repro/kernels/spmv/kernel.py:49", kern["ell_spmv"],
+              "main_path"),
         entry("pack", "src/repro_torch/csrc/pack.cu",
-              "src/repro/kernels/pack/kernel.py:49", kern["pack"]),
+              "src/repro/kernels/pack/kernel.py:49", kern["pack"],
+              "main_path"),
+        entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:80",
+              kern["flash_attention"], "autotune"),
+        entry("ell_onehot", "src/repro_torch/csrc/ell_onehot.cu",
+              "src/repro/kernels/spmv/kernel.py:98", kern["ell_onehot"],
+              "none in the JAX package; its entry point ell_matvec_onehot "
+              "(onehot_path)"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -182,3 +182,49 @@ def featurize(graph: Graph, schedules: list[Schedule]) -> FeatureMatrix:
             "(all schedules are identical, or the corpus is empty); "
             "at least 2 distinct schedules are required")
     return fm
+
+
+def apply_features(graph: Graph, schedules: list[Schedule],
+                   features: list[Feature]) -> np.ndarray:
+    """Evaluate an explicit feature list on ``schedules`` (vectorized).
+
+    The basis is fixed by ``features``: items unseen there contribute
+    nothing, items absent from a schedule give 0 on their order pairs.
+    """
+    order_cols = [j for j, f in enumerate(features) if f.kind == "order"]
+    stream_cols = [j for j, f in enumerate(features) if f.kind == "stream"]
+    X = np.zeros((len(schedules), len(features)), dtype=np.int8)
+    if not schedules or not features:
+        return X
+
+    if order_cols:
+        names = sorted({n for j in order_cols
+                        for n in (features[j].u, features[j].v)})
+        col = {n: i for i, n in enumerate(names)}
+        P = np.full((len(schedules), len(names)), -1, dtype=np.int64)
+        for i, s in enumerate(schedules):
+            for pos, n in enumerate(expanded_names(graph, s)):
+                c = col.get(n)
+                if c is not None:
+                    P[i, c] = pos
+        iu = np.array([col[features[j].u] for j in order_cols])
+        iv = np.array([col[features[j].v] for j in order_cols])
+        Pu, Pv = P[:, iu], P[:, iv]
+        X[:, order_cols] = ((Pu >= 0) & (Pv >= 0) & (Pu < Pv)) \
+            .astype(np.int8)
+
+    if stream_cols:
+        gpu = sorted({n for j in stream_cols
+                      for n in (features[j].u, features[j].v)})
+        gcol = {n: i for i, n in enumerate(gpu)}
+        S = np.full((len(schedules), len(gpu)), -1, dtype=np.int64)
+        for i, s in enumerate(schedules):
+            for n, stream in s.streams().items():
+                c = gcol.get(n)
+                if c is not None:
+                    S[i, c] = stream
+        gu = np.array([gcol[features[j].u] for j in stream_cols])
+        gv = np.array([gcol[features[j].v] for j in stream_cols])
+        X[:, stream_cols] = (S[:, gu] == S[:, gv]).astype(np.int8)
+
+    return X

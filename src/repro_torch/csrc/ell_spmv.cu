@@ -51,13 +51,12 @@ __global__ void ell_spmv_kernel(const T* __restrict__ vals_t,
   y[n] = acc;
 }
 
-constexpr int kThreads = 256;
-
+// threads = rows per CTA (the autotune grid's block_n; 256 by default).
 template <typename T>
 cudaError_t launch(const void* vals_t, const void* cols_t, const void* x,
-                   void* y, int K, int N, void* stream) {
-  const int blocks = (N + kThreads - 1) / kThreads;
-  ell_spmv_kernel<T><<<blocks, kThreads, 0,
+                   void* y, int K, int N, int threads, void* stream) {
+  const int blocks = (N + threads - 1) / threads;
+  ell_spmv_kernel<T><<<blocks, threads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(vals_t), static_cast<const int32_t*>(cols_t),
       static_cast<const T*>(x), static_cast<float*>(y), K, N);
@@ -69,15 +68,15 @@ cudaError_t launch(const void* vals_t, const void* cols_t, const void* x,
 extern "C" {
 
 int ell_spmv_f32(const void* vals_t, const void* cols_t, const void* x,
-                 void* y, int K, int N, void* stream) {
+                 void* y, int K, int N, int threads, void* stream) {
   return static_cast<int>(
-      launch<float>(vals_t, cols_t, x, y, K, N, stream));
+      launch<float>(vals_t, cols_t, x, y, K, N, threads, stream));
 }
 
 int ell_spmv_bf16(const void* vals_t, const void* cols_t, const void* x,
-                  void* y, int K, int N, void* stream) {
+                  void* y, int K, int N, int threads, void* stream) {
   return static_cast<int>(
-      launch<uint16_t>(vals_t, cols_t, x, y, K, N, stream));
+      launch<uint16_t>(vals_t, cols_t, x, y, K, N, threads, stream));
 }
 
 }  // extern "C"

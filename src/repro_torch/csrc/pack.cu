@@ -4,8 +4,9 @@
 // Replaces: src/repro/kernels/pack/kernel.py:pack. The TPU has no lane
 // gather, so the JAX kernel streamed x through VMEM in chunks and summed
 // one-hot (block_c, chunk) matmuls: O(m * n) multiply-adds for m outputs.
-// Hopper gathers directly; the one-hot products, block_c and chunk have
-// no counterpart here. Padded slots (idx = -1) give 0 as they did there.
+// Hopper gathers directly; the one-hot products and chunk have no
+// counterpart here, and block_c becomes the outputs per CTA. Padded
+// slots (idx = -1) give 0 as they did there.
 //
 // What bounds it on the H100: bytes. It reads idx (4 B) and one element
 // of x per output and writes one element: no arithmetic at all.
@@ -29,13 +30,14 @@ __global__ void pack_kernel(const W* __restrict__ x,
   out[j] = (i >= 0 && i < n) ? __ldg(x + i) : W(0);
 }
 
-constexpr int kThreads = 256;
-
+// threads = outputs per CTA (the autotune grid's block_c; 256 by
+// default). The TPU kernel's chunk (the one-hot x-chunk) has no
+// counterpart here.
 template <typename W>
 cudaError_t launch(const void* x, const void* idx, void* out, int n, int m,
-                   void* stream) {
-  const int blocks = (m + kThreads - 1) / kThreads;
-  pack_kernel<W><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                   int threads, void* stream) {
+  const int blocks = (m + threads - 1) / threads;
+  pack_kernel<W><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const W*>(x), static_cast<const int32_t*>(idx),
       static_cast<W*>(out), n, m);
   return cudaGetLastError();
@@ -47,14 +49,14 @@ extern "C" {
 
 // 4-byte elements (float32).
 int pack_b32(const void* x, const void* idx, void* out, int n, int m,
-             void* stream) {
-  return static_cast<int>(launch<uint32_t>(x, idx, out, n, m, stream));
+             int threads, void* stream) {
+  return static_cast<int>(launch<uint32_t>(x, idx, out, n, m, threads, stream));
 }
 
 // 2-byte elements (bfloat16).
 int pack_b16(const void* x, const void* idx, void* out, int n, int m,
-             void* stream) {
-  return static_cast<int>(launch<uint16_t>(x, idx, out, n, m, stream));
+             int threads, void* stream) {
+  return static_cast<int>(launch<uint16_t>(x, idx, out, n, m, threads, stream));
 }
 
 }  // extern "C"

@@ -46,14 +46,21 @@ def reference_schedule(graph: Graph) -> Schedule:
         for n in graph.topological_order()))
 
 
+def _host(v) -> np.ndarray:
+    """A host copy (a tensor's buffer may be overwritten by later runs)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", torch.float32, copy=True).numpy()
+    return np.asarray(v)
+
+
 def _as_output_map(out) -> dict[str, np.ndarray]:
-    """Normalize outputs (mapping / sequence / single array) to named
-    numpy arrays for comparison."""
+    """Normalize outputs (mapping / sequence / single array or tensor,
+    on any device) to named host arrays for comparison."""
     if isinstance(out, Mapping):
-        return {str(k): np.asarray(v) for k, v in out.items()}
+        return {str(k): _host(v) for k, v in out.items()}
     if isinstance(out, (tuple, list)):
-        return {f"out{i}": np.asarray(v) for i, v in enumerate(out)}
-    return {"out": np.asarray(out)}
+        return {f"out{i}": _host(v) for i, v in enumerate(out)}
+    return {"out": _host(out)}
 
 
 def assert_outputs_close(got, ref, *, rtol: float, atol: float = 0.0,
@@ -76,8 +83,7 @@ def assert_outputs_close(got, ref, *, rtol: float, atol: float = 0.0,
 
 def tensor_outputs(env: Mapping, inputs: Mapping) -> dict[str, np.ndarray]:
     """Host copies of the tensors a run added to its environment."""
-    return {k: v.detach().float().to("cpu", copy=True).numpy()
-            for k, v in env.items()
+    return {k: _host(v) for k, v in env.items()
             if k not in inputs and isinstance(v, torch.Tensor)}
 
 
@@ -89,7 +95,8 @@ class ExecutorEvaluator(EvaluatorBase):
     overwrites every buffer the ops write (with NaN, say) before each
     gated run, so a run that reads before a write cannot pass on an
     earlier run's values. Ops without an impl (start/end) are skipped
-    by the runner.
+    by the runner. ``graph`` may be a schedule space; ``base_kwargs``
+    (``store=``, ``store_path=``) go to :class:`EvaluatorBase`.
     """
 
     backend = "torch_wallclock"
@@ -97,8 +104,9 @@ class ExecutorEvaluator(EvaluatorBase):
     def __init__(self, graph: Graph, *, impls: Mapping[str, OpImpl],
                  env: Mapping, reset: Callable[[], None],
                  repeats: int = 5, warmup: int = 1,
-                 device: "str | torch.device | None" = None):
-        super().__init__(graph)
+                 device: "str | torch.device | None" = None,
+                 **base_kwargs):
+        super().__init__(graph, **base_kwargs)
         self.device = resolve_device(device)
         self.platform = platform_string(self.device)
         self.impls = dict(impls)

@@ -5,6 +5,8 @@ import torch
 
 # dtype -> suffix of the exported C function for that element type.
 FLOAT_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# Shared memory one CTA can opt into on Hopper (227 KB).
+MAX_SMEM_BYTES = 232448
 
 
 def check_cuda_args(what: str, *tensors: torch.Tensor) -> None:
@@ -21,3 +23,10 @@ def check_cuda_args(what: str, *tensors: torch.Tensor) -> None:
 def stream_handle(device: torch.device) -> int:
     """The current stream of ``device`` as an integer handle."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_threads(what: str, name: str, threads: int) -> None:
+    """Raise unless ``threads`` is a valid CTA size (1..1024)."""
+    if not 1 <= int(threads) <= 1024:
+        raise ValueError(f"{what}: {name}={threads} threads per CTA is "
+                         "outside 1..1024")

@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("ell_spmv", "pack")
+SOURCES = ("ell_spmv", "pack", "flash_attention", "ell_onehot")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,11 +94,13 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def declare(lib: ctypes.CDLL, fn: str, n_ptr: int, n_int: int):
-    """``fn(ptr * n_ptr, int * n_int, stream) -> cudaError_t``."""
+def declare(lib: ctypes.CDLL, fn: str, n_ptr: int, n_int: int,
+            n_float: int = 0):
+    """``fn(ptr * n_ptr, int * n_int, float * n_float, stream)
+    -> cudaError_t``."""
     f = getattr(lib, fn)
     f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
-        [ctypes.c_void_p]
+        [ctypes.c_float] * n_float + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 

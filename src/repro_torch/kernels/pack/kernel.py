@@ -7,19 +7,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._launch import check_cuda_args, stream_handle
+from repro_torch.kernels._launch import (check_cuda_args, check_threads,
+                                         stream_handle)
 
 _WORD = {torch.float32: "b32", torch.bfloat16: "b16"}
 _fns: dict = {}
 
 
-def pack(x: torch.Tensor, idx: torch.Tensor,
-         out: torch.Tensor) -> torch.Tensor:
+def pack(x: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
+         block_c: int = 256) -> torch.Tensor:
     """``out[j] = x[idx[j]]``, or 0 where ``idx[j]`` is outside [0, n).
 
     ``x`` (n,) float32 or bfloat16, ``idx`` (m,) int32, ``out`` (m,) of
-    ``x``'s dtype; all contiguous on one CUDA device. Launches on the
-    current stream and does not synchronise.
+    ``x``'s dtype; all contiguous on one CUDA device; ``block_c``
+    outputs (threads) per CTA. Launches on the current stream and does
+    not synchronise.
     """
     word = _WORD.get(x.dtype)
     if word is None or out.dtype != x.dtype:
@@ -33,6 +35,7 @@ def pack(x: torch.Tensor, idx: torch.Tensor,
                          "not fit (n,), (m,), (m,)")
     if x.numel() >= 2 ** 31 or idx.numel() >= 2 ** 31:
         raise ValueError("pack: n and m must be below 2**31")
+    check_threads("pack", "block_c", block_c)
     check_cuda_args("pack", x, idx, out)
     m = idx.numel()
     if m == 0:
@@ -40,9 +43,9 @@ def pack(x: torch.Tensor, idx: torch.Tensor,
     fn = _fns.get(word)
     if fn is None:
         fn = _fns[word] = build.declare(build.library("pack"),
-                                        f"pack_{word}", 3, 2)
+                                        f"pack_{word}", 3, 3)
     err = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.numel(), m,
-             stream_handle(x.device))
+             block_c, stream_handle(x.device))
     build.check(err, "pack")
     pack.launches += 1
     return out

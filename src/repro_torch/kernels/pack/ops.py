@@ -26,11 +26,13 @@ def pack_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def pack(x: torch.Tensor, idx: torch.Tensor,
-         out: torch.Tensor | None = None) -> torch.Tensor:
-    """Gather ``x[idx]`` into ``out`` (allocated when not given)."""
+         out: torch.Tensor | None = None,
+         block_c: int = 256) -> torch.Tensor:
+    """Gather ``x[idx]`` into ``out`` (allocated when not given);
+    ``block_c`` outputs per CTA on the card."""
     if x.device.type == "cpu":
         y = pack_plain(x, idx)
         return y if out is None else out.copy_(y)
     if out is None:
         out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
-    return _k.pack(x, idx, out)
+    return _k.pack(x, idx, out, block_c)

@@ -246,12 +246,24 @@ class DecisionTree:
 
 # -- the paper's Algorithm 1 -------------------------------------------------
 
-def algorithm1(X: np.ndarray, y: np.ndarray) -> DecisionTree:
+@dataclasses.dataclass
+class TreeSearchTrace:
+    """Every trial of :func:`algorithm1`: its max_leaf_nodes, training
+    error and depth."""
+
+    max_leaf_nodes: list[float]
+    errors: list[float]
+    depths: list[int]
+
+
+def algorithm1(X: np.ndarray, y: np.ndarray,
+               trace: TreeSearchTrace | None = None) -> DecisionTree:
     """Paper Algorithm 1: grow max_leaf_nodes until error stops shrinking.
 
     ``train(mln)`` fits a tree with max_leaf_nodes=mln and
     max_depth=mln-1. Starting leaf count = number of classes (the paper's
-    listing initialises with 2; we use max(2, n_classes) per §IV-C text).
+    listing initialises with 2; we use max(2, n_classes) per §IV-C text);
+    ``trace`` records every trial.
     The trials share a split cache, so a re-trial only scores the
     frontier nodes its predecessors never reached.
     """
@@ -262,7 +274,12 @@ def algorithm1(X: np.ndarray, y: np.ndarray) -> DecisionTree:
     def train(k: int) -> tuple[float, DecisionTree]:
         t = DecisionTree(max_leaf_nodes=k, max_depth=k - 1).fit(
             X, y, split_cache=split_cache)
-        return t.training_error(X, y), t
+        e = t.training_error(X, y)
+        if trace is not None:
+            trace.max_leaf_nodes.append(k)
+            trace.errors.append(e)
+            trace.depths.append(t.depth())
+        return e, t
 
     err, clf = train(mln)
     improved = True

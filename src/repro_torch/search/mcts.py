@@ -28,9 +28,11 @@ evaluation this is exactly the paper's loop; larger proposal batches
 trade a little selection fidelity (tree statistics lag by up to one
 batch) for batched evaluation throughput.
 
-Moves are the DAG-eligible ``BoundOp``\\ s of
-:func:`repro_torch.space.schedule.eligible_items`, keyed by
-``(name, stream)``; the random choices are the JAX package's, call for
+The tree is space-generic: "prefixes" are move sequences of any
+:class:`~repro_torch.space.base.DesignSpace` (DAG-eligible
+``BoundOp``\\ s for schedule spaces, per-dimension value assignments
+for parameter grids), expanded through ``space.moves`` and keyed by
+``space.move_key``. The random choices are the JAX package's, call for
 call, so the same seed and the same times give the same trajectory.
 """
 from __future__ import annotations
@@ -39,13 +41,9 @@ import math
 import random
 
 from repro_torch.core.dag import BoundOp, Graph, Schedule
-from repro_torch.space.schedule import canonical_key, eligible_items
+from repro_torch.space.base import DesignSpace, as_space
 
 EXPLORATION_C = math.sqrt(2.0)
-
-
-def _move_key(move: BoundOp) -> tuple:
-    return (move.name, move.stream)
 
 
 class Node:
@@ -73,14 +71,15 @@ class Node:
 
 
 class MCTSSearch:
-    """Paper-faithful MCTS over ``graph``'s schedules on ``n_streams``
-    streams, with the propose/observe strategy protocol."""
+    """Paper-faithful MCTS over a design space (a ``Graph`` means its
+    schedules on ``n_streams`` streams, 2 by default), with the
+    propose/observe strategy protocol."""
 
-    def __init__(self, graph: Graph, n_streams: int = 2, seed: int = 0):
-        if n_streams < 1:
-            raise ValueError("n_streams must be >= 1")
-        self.graph = graph
-        self.n_streams = n_streams
+    def __init__(self, graph: "Graph | DesignSpace",
+                 n_streams: int | None = None, seed: int = 0):
+        self.space = as_space(graph, n_streams)
+        self.graph = getattr(self.space, "graph", None)
+        self.n_streams = getattr(self.space, "n_streams", None)
         self.rng = random.Random(seed)
         self.root = Node(None, None)
         # Rollout leaves awaiting their observation, by candidate key.
@@ -111,7 +110,7 @@ class MCTSSearch:
             # zero-rollout child.
             if any(key not in node.children or
                    node.children[key].n_rollouts == 0
-                   for key in (_move_key(o) for o in opts)):
+                   for key in (self.space.move_key(o) for o in opts)):
                 return node
             if not node.children:
                 return node  # complete leaf (shouldn't be selected; guard)
@@ -120,20 +119,20 @@ class MCTSSearch:
 
     def _expandable(self, node: Node) -> list[BoundOp]:
         if node._expandable is None:
-            node._expandable = eligible_items(self.graph, node.prefix(),
-                                              self.n_streams)
+            node._expandable = self.space.moves(node.prefix())
         return node._expandable
 
     # -- phase 2: expansion ------------------------------------------------
     def _expand(self, node: Node) -> Node:
         opts = self._expandable(node)
+        move_key = self.space.move_key
         fresh = [o for o in opts
-                 if _move_key(o) not in node.children or
-                 node.children[_move_key(o)].n_rollouts == 0]
+                 if move_key(o) not in node.children or
+                 node.children[move_key(o)].n_rollouts == 0]
         if not fresh:  # fully rolled-out interior node: descend randomly
             return node
         choice = self.rng.choice(fresh)
-        key = _move_key(choice)
+        key = move_key(choice)
         if key not in node.children:
             node.children[key] = Node(choice, node)
         return node.children[key]
@@ -147,11 +146,11 @@ class MCTSSearch:
             if not opts:
                 break
             choice = self.rng.choice(opts)
-            key = _move_key(choice)
+            key = self.space.move_key(choice)
             if key not in cur.children:
                 cur.children[key] = Node(choice, cur)
             cur = cur.children[key]
-        return cur, Schedule(tuple(cur.prefix()))
+        return cur, self.space.finalize(cur.prefix())
 
     # -- phase 4: backpropagation -------------------------------------------
     def _backprop(self, leaf: Node, t: float) -> None:
@@ -177,8 +176,8 @@ class MCTSSearch:
     def _materialize(self, schedule: Schedule) -> Node:
         """Walk (creating as needed) the tree path for ``schedule``."""
         node = self.root
-        for item in schedule.items:
-            key = _move_key(item)
+        for item in self.space.candidate_moves(schedule):
+            key = self.space.move_key(item)
             if key not in node.children:
                 node.children[key] = Node(item, node)
             node = node.children[key]
@@ -193,12 +192,13 @@ class MCTSSearch:
             node = self._select()
             node = self._expand(node)
             leaf, schedule = self._rollout(node)
-            self._pending[canonical_key(schedule)] = leaf
+            self._pending[self.space.candidate_key(schedule)] = leaf
             out.append(schedule)
         return out
 
     def observe(self, schedule: Schedule, time: float) -> None:
-        leaf = self._pending.pop(canonical_key(schedule), None)
+        leaf = self._pending.pop(self.space.candidate_key(schedule),
+                                 None)
         if leaf is None:
             # Re-observation or an externally produced schedule: its tree
             # path is the schedule itself.

@@ -105,3 +105,88 @@ def test_removed_syncs_are_caught_by_the_gate(small_spmv, dev):
     assert [c["dropped"] for c in checks] == ["CES-b4-PostSend",
                                              "CSWE-b4-C"]
     assert all(c["caught"] for c in checks)
+
+
+# -- flash attention and the narrow-band SpMV -----------------------------------
+
+ATTN_CASES = [((2, 3, 256, 64), (2, 3, 256, 64), torch.float32, True),
+              ((1, 2, 300, 64), (1, 2, 300, 64), torch.float32, True),
+              ((2, 2, 256, 128), (2, 2, 256, 128), torch.bfloat16, True),
+              ((1, 2, 64, 48), (1, 2, 64, 48), torch.float32, True),
+              ((1, 2, 128, 64), (1, 2, 256, 64), torch.float32, False),
+              ((1, 1, 128, 64), (1, 1, 384, 64), torch.float32, True)]
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,dtype,causal", ATTN_CASES)
+def test_flash_attention_kernel_matches_plain(dev, q_shape, kv_shape,
+                                              dtype, causal):
+    """tests/test_kernels.py:118-156's cases: the kernel behind mha's
+    padding against the plain version behind the same padding (the CPU
+    path); f32 2e-5, bf16 3e-2 (bf16 outputs)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention.ops import mha
+    rng = np.random.default_rng(sum(q_shape))
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in (q_shape, kv_shape, kv_shape)]
+    before = fa_k.flash_attention.launches
+    out = mha(*(torch.from_numpy(a).to(dev, dtype) for a in arrays),
+              causal=causal)
+    torch.cuda.synchronize()
+    assert fa_k.flash_attention.launches == before + 1
+    plain = mha(*(torch.from_numpy(a).to(dtype) for a in arrays),
+                causal=causal)
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    assert float((out.float().cpu() - plain.float()).abs().max()) <= tol
+
+
+def test_flash_attention_every_grid_block_pair_launches(dev):
+    """Every (block_q, block_k) of the autotune grid launches at D = 128
+    in float32 and computes the plain version's values."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention.ops import attention_plain
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(2, 256, 128, device=dev, generator=g)
+               for _ in range(3))
+    plain = attention_plain(q, k, v, causal=True, scale=128 ** -0.5)
+    for bq in (16, 32, 64, 128):
+        for bk in (16, 32, 64, 128):
+            out = fa_k.flash_attention(q, k, v, torch.empty_like(q),
+                                       causal=True, block_q=bq, block_k=bk,
+                                       scale=128 ** -0.5)
+            torch.cuda.synchronize()
+            assert float((out - plain).abs().max()) <= 2e-5, (bq, bk)
+
+
+@pytest.mark.parametrize("n,k,hb,block_r", [
+    (256, 4, 32, 64), (512, 8, 64, 128), (384, 3, 48, 128),
+    (300, 5, 40, 128)])
+def test_ell_onehot_kernel_matches_plain(dev, n, k, hb, block_r):
+    from repro_torch.kernels.spmv.ops import ell_matvec_onehot
+    rng = np.random.default_rng(n)
+    offs = rng.integers(-hb, hb + 1, size=(n, k))
+    cols = ((np.arange(n)[:, None] + offs) % n).astype(np.int32)
+    vals = rng.standard_normal((n, k)).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    before = spmv_k.ell_onehot.launches
+    out = ell_matvec_onehot(*(torch.from_numpy(a).to(dev)
+                              for a in (vals, cols, x)), hb, block_r)
+    torch.cuda.synchronize()
+    assert spmv_k.ell_onehot.launches == before + 1
+    plain = ell_matvec_onehot(*(torch.from_numpy(a)
+                                for a in (vals, cols, x)), hb, block_r)
+    torch.testing.assert_close(out.cpu(), plain, rtol=1e-5, atol=1e-5)
+
+
+def test_a_refused_launch_raises(dev):
+    """The C side refuses a head dim it was not built for; the wrapper
+    turns the returned CUDA error into an exception, nothing is hidden."""
+    from repro_torch.kernels import build
+    fn = build.declare(build.library("flash_attention"),
+                       "flash_attention_f32", 4, 7, 1)
+    x = torch.zeros(1, 128, 96, device=dev)
+    err = fn(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), 1,
+             128, 128, 96, 128, 128, 1, 0.1,
+             torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check(err, "flash_attention")
