@@ -6,12 +6,16 @@ Usage: python3 chip_smoke.py        (from the repository root, one card)
 Phases, each printing one JSON line:
 
   probe        card, capability, power limit, torch and nvcc versions
-  build        nvcc build of the hand-written kernels (csrc/*.cu)
+  build        nvcc build of the hand-written kernels (csrc/*.cu), with
+               each function's registers and spills from ptxas
   kernels      each kernel against its plain PyTorch version on the card
                at the main path's shapes and on the reference sweep's
                cases; CUDA-event medians of kernel, plain version and one
                PyTorch library call, beside the bound (bytes or flops over
-               the card's peak)
+               the card's peak). Flash attention's bound is its 3xTF32
+               work on the tensor cores (``bound_ms_f32_cores`` beside
+               it); its library call, SDPA, is named from a
+               ``torch.profiler`` trace and held to the plain version too
   distributed  the 4-rank SpMV at the paper's size against the float64
                oracle
   race         two schedules with one sync removed must fail the value
@@ -52,6 +56,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 (NVIDIA data sheet)
 PAPER_N, PAPER_NNZ, RANKS = 150_000, 1_500_000, 4
 # One attention layer of qwen2.5-32b (n_heads=40, d_model=5120) at the
 # train_4k length; the flash_attention space's instance.
@@ -93,10 +98,26 @@ def time_cuda(fn, iters: int = 60) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_kernel(fn) -> str:
+    """Name of the longest device kernel one call of ``fn`` launches,
+    from a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in p.key_averages()
+               if e.device_time_total > 0 and "Activity Buffer" not in e.key]
+    if not kernels:
+        raise AssertionError("torch.profiler saw no device kernel")
+    return max(kernels, key=lambda e: e.device_time_total).key
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -251,11 +272,17 @@ def phase_attention(dev) -> dict:
         raise AssertionError(f"flash_attention: max abs err {err} > 2e-5")
     # Useful causal work: query i meets i + 1 keys (S = Sq = Skv), two
     # flops per multiply-add in q.k and in p.v; each of q, k, v read
-    # once and the output written once.
+    # once and the output written once. The kernel runs them on the
+    # tensor cores in 3xTF32: three TF32 products for each float32 one.
     pairs = b * h * s * (s + 1) / 2
     flops = 4.0 * pairs * d
     n_bytes = 4 * q.numel() * q.element_size()
-    bnd, by = bound_ms(n_bytes, flops)
+    bnd, by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS_PER_S)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    lib_err = float((sdpa().reshape(b * h, s, d) - plain).abs().max())
     call = {
         "op": "mha", "shape": [b, h, s, d], "dtype": "float32",
         "causal": True, "block_q": 128, "block_k": 128, "flops": flops,
@@ -263,9 +290,11 @@ def phase_attention(dev) -> dict:
         "ms": time_cuda(kernel, iters=10),
         "plain_ms": time_cuda(lambda: attention_plain(
             qf, kf, vf, causal=True, scale=scale), iters=5),
-        "library_ms": time_cuda(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), iters=10),
-        "bound_ms": bnd, "bound_by": by}
+        "library_ms": time_cuda(sdpa, iters=10),
+        "library_kernel": device_kernel(sdpa),
+        "library_max_abs_err": lib_err,
+        "bound_ms": bnd, "bound_by": by,
+        "bound_ms_f32_cores": bound_ms(n_bytes, flops)[0]}
     del plain, got
 
     # tests/test_kernels.py:118-156: causal sweep (ragged S, bf16, a
@@ -661,8 +690,11 @@ def main() -> int:
     emit("probe", nvidia_smi=smi, **probe())
 
     report = build.build()
+    # Each function's name, then its registers and spills.
     ptxas = {s: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if any(w in ln for w in (
+                     "Compiling entry function", "Function properties for",
+                     "registers", "spill"))]
              for s, log in report["logs"].items()}
     emit("build", seconds=report["seconds"], dir=str(report["dir"]),
          ptxas=ptxas)
@@ -704,7 +736,7 @@ def main() -> int:
     launches = {**main_path["launches"], **onehot_path["launches"],
                 **autotune["launches"]}
 
-    def entry(name, source, replaces, calls, path):
+    def entry(name, source, replaces, calls, path, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "path": path,
                 "launches": launches[name],
@@ -712,7 +744,9 @@ def main() -> int:
                 **{k: (None if any(c[k] is None for c in calls)
                        else sum(c[k] for c in calls))
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-                "bound_by": calls[0]["bound_by"]}
+                "bound_by": calls[0]["bound_by"], **extra}
+
+    fa = kern["flash_attention"][0]
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [
@@ -724,7 +758,12 @@ def main() -> int:
               "main_path"),
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:80",
-              kern["flash_attention"], "autotune"),
+              kern["flash_attention"], "autotune",
+              bound_ms_f32_cores=fa["bound_ms_f32_cores"],
+              library_kernel=fa["library_kernel"],
+              library_max_abs_err=fa["library_max_abs_err"],
+              autotune_best=autotune["best"],
+              autotune_best_ms=autotune["best_ms"]),
         entry("ell_onehot", "src/repro_torch/csrc/ell_onehot.cu",
               "src/repro/kernels/spmv/kernel.py:98", kern["ell_onehot"],
               "none in the JAX package; its entry point ell_matvec_onehot "

@@ -4,248 +4,441 @@
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py:flash_attention
 // (body _flash_body). It computes what that kernel computes: running max
-// m, running sum l and the accumulator in float32, masked scores set to
-// -1e30 (not -inf, so exp(m_prev - m_new) is never NaN) and their
-// probabilities to 0, and o = acc / max(l, 1e-30) in q's dtype. The TPU
-// grid walked every KV block of a (bh, q-block) in order and carried
-// (m, l, acc) in VMEM scratch between grid steps; here one CTA owns a
-// (bh, q-block) and walks its KV tiles in a loop. KV tiles that lie
-// wholly above the causal diagonal are skipped (the TPU kernel visited
-// and masked them); the output is the same.
+// m, running sum l and the accumulator in float32, masked keys with
+// probability 0 (the running max never falls below -1e30, so
+// exp(m_prev - m_new) is never NaN), and o = acc / max(l, 1e-30) in q's
+// dtype. The TPU grid walked every KV block of a (bh, q-block) in order
+// and carried (m, l, acc) in VMEM scratch between grid steps; here one
+// CTA owns a (bh, q-block) and walks its KV tiles in a loop. KV tiles
+// that lie wholly above the causal diagonal are skipped (the TPU kernel
+// visited and masked them); the output is the same.
 //
 // What bounds it on the H100: operations. Causal self-attention at
 // S = 4096, D = 128 does 4*B*H*S^2*D/2 useful flops against 4 tensors of
-// B*H*S*D words, hundreds of flops per byte. This simple kernel runs on
-// the float32 CUDA cores (67 TFLOP/s), not the tensor cores; wgmma/TMA
-// are later work.
+// B*H*S*D words, hundreds of flops per byte. Both products run on the
+// tensor cores with the warp-level mma.sync.m16n8k8 in TF32. TF32 keeps
+// 11 bits of mantissa, so each operand x is split as big = tf32(x),
+// small = tf32(x - big) and a product takes three MMAs (small*big,
+// big*small, then big*big; small*small is dropped): "3xTF32", float32
+// accuracy at three times the TF32 work (the bound is 3x the flops at
+// the dense TF32 rate). A single TF32 pass is ~1e-3 off at D = 128
+// (tests/test_torch_attention.py emulates both).
 //
-// Design. One CTA per (bh, block_q query rows), block_q / 8 warps, each
-// warp owning 8 query rows. Shared memory holds the CTA's Q tile (scaled,
-// float32), one K tile and one V tile of block_k rows (float32), and a
-// 32-wide probability row per query row:
-//   (block_q*D + block_k*(D+1) + block_k*D + block_q*32) * 4 bytes,
-// 213.5 KB at block_q = block_k = 128, D = 128 (under the 227 KB a CTA
-// can opt into). Keys are taken 32 (or 16) at a time: lane j scores key
-// j against the warp's 8 rows (Q read as float4 broadcasts, K rows padded
-// to D+1 words so the 32 lanes hit 32 banks), the warp reduces max and
-// sum with shuffles, then every lane accumulates its D/32 output columns
-// of the 8 rows from the probabilities (float4 broadcasts) and V (one
-// word per lane, conflict-free). acc stays in registers: 8 rows x D/32
-// floats per lane. Blocks are runtime arguments (no template per block
-// pair); the head dim is a template (64 or 128, ops.py pads to it).
+// Design. One CTA per (bh, block_q query rows), one warp per 16 rows.
+// Shared memory holds the Q tile (scaled by scale * log2(e), so the
+// softmax takes exp2), one K tile and one V tile of BK rows, float32,
+// rows padded to D+4 words: (block_q + 2 BK) (D + 4) 4 bytes, 202.8 KB
+// at 128 x 128, D = 128 (under the 227 KB a CTA can opt into). Every
+// fragment load then hits 32 distinct banks: A (rows g, g+8, columns t,
+// t+4) and B of K (keys g, dims t, t+4) at bank 4g + t, B of V (keys
+// 2t, 2t+1, dims g) at 8t + g (+4).
+// A warp computes its 16 x BK tile of scores into registers (BK/2
+// floats a thread), masks it only where the tile crosses the causal
+// diagonal, updates (m, l) with shuffles inside the quad of 4 lanes that
+// share a row, and feeds P to P.V straight from the score accumulator:
+// lane (g, t) holds keys 2t and 2t+1 of each 8-key group, and the k
+// slots of each P.V step are permuted to match (slot t is key 2t, slot
+// t+4 key 2t+1; V's B fragment reads the same keys), so P needs neither
+// shuffles nor shared memory. The O accumulator is D/2 floats a thread.
+// P.V of a tile goes into a fresh accumulator (one half of D at a time,
+// D/4 floats) that is then added to O: the tensor cores' float32 sums
+// are not rounded to nearest, and one running sum over all 4096 keys
+// tripled the error (9.0e-6 against 3.4e-6 at 1 x 40 x 4096 x 128 on an
+// H100).
+// Tiles follow FlashAttention-2's order with one buffer each: V(t) is
+// fetched (cp.async) while S(t) is computed, K(t+1) while P(t).V(t) is.
+// block_k is a template (16, 32, 64, 128: the score tile lives in
+// registers), as is the head dim (64 or 128, ops.py pads to it);
+// block_q is a runtime argument.
+// bf16 inputs take the same path (converted to float32 on load); their
+// K and V are exact in TF32, so the MMAs with their small parts are
+// skipped.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kRowsPerWarp = 8;
-constexpr int kMaxThreads = 512;        // block_q <= 128
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kRowsPerWarp = 16;
+constexpr int kMaxThreads = 256;        // block_q <= 128
 constexpr int kMaxSmem = 232448;        // 227 KB, the opt-in limit
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-__device__ __forceinline__ float to_f(uint16_t x) {
-  // bfloat16 is the top half of a float32.
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
+// cvt.rna.tf32.f32 (to nearest, ties away from zero) in two integer
+// operations: add half a TF32 ulp, clear the 13 bits TF32 drops. Equal
+// to cvt.rna for every finite x, the infinities and quiet NaNs; the
+// instruction itself also tests for them, which costs a third operation.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store(uint16_t* p, float x) {
-  *p = __bfloat16_as_ushort(__float2bfloat16_rn(x));
+// x = big + small, both TF32 (the error left is below 2^-22 |x|).
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// d += a b for a 16x8 A, an 8x8 B and a 16x8 float32 D.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// d += a b in 3xTF32, a given split (big ab, small as), b as two floats.
+// The small products go first so that they are not lost against the
+// big one. B_EXACT: b is exact in TF32 (bf16 inputs), its small part is
+// zero and that MMA is skipped.
+template <bool B_EXACT>
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], float b0,
+                                     float b1) {
+  if (B_EXACT) {
+    const uint32_t bb0 = __float_as_uint(b0), bb1 = __float_as_uint(b1);
+    mma(d, as, bb0, bb1);
+    mma(d, ab, bb0, bb1);
+  } else {
+    uint32_t bb0, bs0, bb1, bs1;
+    split(b0, bb0, bs0);
+    split(b1, bb1, bs1);
+    mma(d, as, bb0, bb1);
+    mma(d, ab, bs0, bs1);
+    mma(d, ab, bb0, bb1);
+  }
 }
 
-template <typename T, int D>
+// rows x D of global memory (rows of D elements) into shared rows of
+// D + 4 floats, times mul, with 16-byte loads.
+template <int D>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          int rows, float mul, int tid,
+                                          int nthr) {
+  constexpr int C = D / 4;
+  for (int i = tid; i < rows * C; i += nthr) {
+    const int r = i / C, c = i - r * C;
+    float4 x = *reinterpret_cast<const float4*>(src + r * D + 4 * c);
+    x.x *= mul;
+    x.y *= mul;
+    x.z *= mul;
+    x.w *= mul;
+    *reinterpret_cast<float4*>(dst + r * (D + 4) + 4 * c) = x;
+  }
+}
+
+__device__ __forceinline__ float lo_bf16(uint32_t x) {
+  return __uint_as_float(x << 16);      // bfloat16 is a float32's top half
+}
+
+__device__ __forceinline__ float hi_bf16(uint32_t x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
+
+template <int D>
+__device__ __forceinline__ void copy_rows(float* dst, const uint16_t* src,
+                                          int rows, float mul, int tid,
+                                          int nthr) {
+  constexpr int C = D / 8;
+  for (int i = tid; i < rows * C; i += nthr) {
+    const int r = i / C, c = i - r * C;
+    const uint4 u = *reinterpret_cast<const uint4*>(src + r * D + 8 * c);
+    float* d = dst + r * (D + 4) + 8 * c;
+    *reinterpret_cast<float4*>(d) =
+        make_float4(lo_bf16(u.x) * mul, hi_bf16(u.x) * mul,
+                    lo_bf16(u.y) * mul, hi_bf16(u.y) * mul);
+    *reinterpret_cast<float4*>(d + 4) =
+        make_float4(lo_bf16(u.z) * mul, hi_bf16(u.z) * mul,
+                    lo_bf16(u.w) * mul, hi_bf16(u.w) * mul);
+  }
+}
+
+// A K or V tile into shared memory: float32 with cp.async (16 bytes a
+// copy, L2 only), to be waited for with cp_async_wait_all; bf16 with
+// loads that convert on the way.
+template <int D>
+__device__ __forceinline__ void fetch_rows(float* dst, const float* src,
+                                           int rows, int tid, int nthr) {
+  constexpr int C = D / 4;
+  for (int i = tid; i < rows * C; i += nthr) {
+    const int r = i / C, c = i - r * C;
+    const uint32_t to = static_cast<uint32_t>(
+        __cvta_generic_to_shared(dst + r * (D + 4) + 4 * c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(to),
+                 "l"(src + r * D + 4 * c)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int D>
+__device__ __forceinline__ void fetch_rows(float* dst, const uint16_t* src,
+                                           int rows, int tid, int nthr) {
+  copy_rows<D>(dst, src, rows, 1.0f, tid, nthr);
+}
+
+// This thread's cp.async copies have landed (a __syncthreads after it
+// makes every thread's visible).
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// 2^x with one MUFU op (exp2f also guards results below 2^-126, which
+// this kernel may flush to 0: they are probabilities under 1e-38).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(uint16_t* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename T, int D, int BK>
 __global__ void __launch_bounds__(kMaxThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, int n_qb,
-                     int Sq, int Skv, int block_q, int block_k, int causal,
+                     int Sq, int Skv, int block_q, int causal,
                      float scale) {
-  constexpr int DPL = D / 32;           // output columns per lane
-  constexpr int R = kRowsPerWarp;
+  constexpr int LD = D + 4;             // shared row stride, in floats
+  constexpr int NK = BK / 8;            // 8-key groups of a tile
+  constexpr int ND = D / 8;             // 8-dim groups of a row
+  constexpr bool kExact = !std::is_same<T, float>::value;
+  // Unrolling the S loop over D whole helps up to 64 keys a tile; at 128
+  // it costs more than it gives (measured on the H100).
+  constexpr int kSUnroll = BK <= 64 ? ND : 2;
   extern __shared__ float smem[];
-  float* Qs = smem;                     // block_q x D, pre-scaled
-  float* Ks = Qs + block_q * D;         // block_k x (D + 1)
-  float* Vs = Ks + block_k * (D + 1);   // block_k x D
-  float* Ps = Vs + block_k * D;         // block_q x 32 probabilities
+  float* Qs = smem;                     // block_q x LD
+  float* Ks = Qs + block_q * LD;        // BK x LD
+  float* Vs = Ks + BK * LD;             // BK x LD
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nthr = blockDim.x;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x / n_qb;
   // Heavy (late, causal) query blocks first: a shorter tail.
   const int qb = n_qb - 1 - blockIdx.x % n_qb;
   const int q0 = qb * block_q;
   const int q_offset = Skv - Sq;
   const size_t qoff = (static_cast<size_t>(bh) * Sq + q0) * D;
-  const size_t koff = static_cast<size_t>(bh) * Skv * D;
+  const T* kb = k + static_cast<size_t>(bh) * Skv * D;
+  const T* vb = v + static_cast<size_t>(bh) * Skv * D;
 
-  for (int i = tid; i < block_q * D; i += nthr)
-    Qs[i] = to_f(q[qoff + i]) * scale;
-
-  const int wrow = warp * R;            // the warp's first row in the tile
-  float acc[R][DPL], m[R], l[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.0f;
-  }
-
-  int n_tiles = Skv / block_k;
+  int n_tiles = Skv / BK;
   if (causal) {
     const int last = q0 + block_q - 1 + q_offset;   // largest query position
-    n_tiles = last < 0 ? 0 : min(n_tiles, last / block_k + 1);
+    n_tiles = last < 0 ? 0 : min(n_tiles, last / BK + 1);
   }
-  const int CH = (block_k % 32 == 0) ? 32 : 16;     // keys per chunk
+  if (n_tiles > 0) fetch_rows<D>(Ks, kb, BK, tid, nthr);
+  copy_rows<D>(Qs, q + qoff, block_q, scale * kLog2e, tid, nthr);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();                    // Qs written / last tile consumed
-    const int k0 = t * block_k;
-    const size_t toff = koff + static_cast<size_t>(k0) * D;
-    for (int i = tid; i < block_k * D; i += nthr) {
-      const int r = i / D, c = i - r * D;
-      Ks[r * (D + 1) + c] = to_f(k[toff + i]);
-      Vs[i] = to_f(v[toff + i]);
-    }
-    __syncthreads();
+  const int r0 = warp * kRowsPerWarp;   // the warp's first row in the tile
+  const int qpos = q0 + r0 + g + q_offset;  // position of row g (g+8: +8)
+  const int qlast = q0 + r0 + kRowsPerWarp - 1 + q_offset;
+  const float* Qw = Qs + (r0 + g) * LD + t;
+  float acc[ND][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 
-    for (int c0 = 0; c0 < block_k; c0 += CH) {
-      // Scores: lane j holds key k0 + c0 + j for each of the warp's rows
-      // (idle lanes of a 16-key chunk score a valid key and are masked).
-      const float* kr = Ks + (c0 + (lane < CH ? lane : CH - 1)) * (D + 1);
-      float s[R];
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK;
+    cp_async_wait_all();
+    __syncthreads();                    // K(it) and Q in place; V(it-1) used
+    fetch_rows<D>(Vs, vb + static_cast<size_t>(k0) * D, BK, tid, nthr);
+
+    // Keys of this tile that the warp's last row sees (all if not causal).
+    const int live = causal ? min(BK, qlast - k0 + 1) : BK;
+    float s[NK][4];
+    if (live > 0) {
+      // S = Q K^T: s[j] holds rows g, g+8 x keys 8j + 2t, 8j + 2t + 1.
 #pragma unroll
-      for (int r = 0; r < R; ++r) s[r] = 0.0f;
-#pragma unroll 4
-      for (int d = 0; d < D; d += 4) {
-        const float ka = kr[d], kb = kr[d + 1], kc = kr[d + 2],
-                    kd = kr[d + 3];
+      for (int j = 0; j < NK; ++j)
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      const float* Kw = Ks + g * LD + t;
+#pragma unroll kSUnroll
+      for (int kk = 0; kk < ND; ++kk) {
+        const float* qa = Qw + 8 * kk;
+        uint32_t ab[4], as[4];
+        split(qa[0], ab[0], as[0]);
+        split(qa[8 * LD], ab[1], as[1]);
+        split(qa[4], ab[2], as[2]);
+        split(qa[8 * LD + 4], ab[3], as[3]);
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float4 qv =
-              *reinterpret_cast<const float4*>(Qs + (wrow + r) * D + d);
-          s[r] = fmaf(qv.x, ka, s[r]);
-          s[r] = fmaf(qv.y, kb, s[r]);
-          s[r] = fmaf(qv.z, kc, s[r]);
-          s[r] = fmaf(qv.w, kd, s[r]);
+        for (int j = 0; j < NK; ++j) {
+          const float* kr = Kw + 8 * j * LD + 8 * kk;
+          mma3<kExact>(s[j], ab, as, kr[0], kr[4]);
         }
       }
-      // Online softmax over the chunk, row by row.
-      const int kpos = k0 + c0 + lane;
+      // The causal mask, only where the tile crosses the diagonal.
+      if (causal && k0 + BK - 1 > qpos - g) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int qpos = q0 + wrow + r + q_offset;
-        const bool live = lane < CH && (!causal || kpos <= qpos);
-        const float sr = live ? s[r] : kNegInf;
-        const float m_new = fmaxf(m[r], warp_max(sr));
-        const float p = live ? expf(sr - m_new) : 0.0f;
-        const float corr = expf(m[r] - m_new);
-        l[r] = l[r] * corr + warp_sum(p);
-        m[r] = m_new;
+        for (int j = 0; j < NK; ++j)
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[r][i] *= corr;
-        Ps[(wrow + r) * 32 + lane] = p;
+          for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * j + 2 * t + (e & 1) > qpos + 8 * (e >> 1))
+              s[j][e] = -CUDART_INF_F;
       }
-      __syncwarp();
-      // acc += P V over the chunk's keys, 4 at a time.
-      for (int jj = 0; jj < CH; jj += 4) {
-        float vr[4][DPL];
+      // Online softmax: row max over the quad, exp2, partial row sums
+      // (each lane sums its own columns; the quad adds them at the end).
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+      for (int j = 0; j < NK; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+      }
 #pragma unroll
-          for (int i = 0; i < DPL; ++i)
-            vr[a][i] = Vs[(c0 + jj + a) * D + lane + 32 * i];
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float corr = fast_exp2(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= corr;
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float4 p4 =
-              *reinterpret_cast<const float4*>(Ps + (wrow + r) * 32 + jj);
+        for (int j = 0; j < ND; ++j) {
+          acc[j][2 * r] *= corr;
+          acc[j][2 * r + 1] *= corr;
+        }
+      }
 #pragma unroll
-          for (int i = 0; i < DPL; ++i) {
-            acc[r][i] = fmaf(p4.x, vr[0][i], acc[r][i]);
-            acc[r][i] = fmaf(p4.y, vr[1][i], acc[r][i]);
-            acc[r][i] = fmaf(p4.z, vr[2][i], acc[r][i]);
-            acc[r][i] = fmaf(p4.w, vr[3][i], acc[r][i]);
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = fast_exp2(s[j][e] - m[e >> 1]);
+          l[e >> 1] += s[j][e];
+        }
+    }
+
+    cp_async_wait_all();
+    __syncthreads();                    // V(it) in place; K(it) used
+    if (it + 1 < n_tiles)
+      fetch_rows<D>(Ks, kb + static_cast<size_t>(k0 + BK) * D, BK, tid,
+                    nthr);
+
+    if (live > 0) {
+      // O += P V, 8 keys a step; slot t is key 2t, slot t + 4 key 2t + 1.
+      // Each half of D sums the tile into its own accumulator first.
+      const float* Vw = Vs + 2 * t * LD + g;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float part[ND / 2][4];
+#pragma unroll
+        for (int j = 0; j < ND / 2; ++j)
+          part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          if (8 * kk < live) {
+            uint32_t ab[4], as[4];
+            split(s[kk][0], ab[0], as[0]);
+            split(s[kk][2], ab[1], as[1]);
+            split(s[kk][1], ab[2], as[2]);
+            split(s[kk][3], ab[3], as[3]);
+            const float* vr = Vw + 8 * kk * LD + 8 * (ND / 2) * h;
+#pragma unroll
+            for (int j = 0; j < ND / 2; ++j)
+              mma3<kExact>(part[j], ab, as, vr[8 * j], vr[LD + 8 * j]);
           }
         }
+#pragma unroll
+        for (int j = 0; j < ND / 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[(ND / 2) * h + j][e] += part[j][e];
       }
-      __syncwarp();                     // Ps is rewritten by the next chunk
     }
   }
 
+  T* orow = o + qoff + static_cast<size_t>(r0 + g) * D + 2 * t;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = o + qoff + static_cast<size_t>(wrow + r) * D;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = 1.0f / fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      store(orow + lane + 32 * i, acc[r][i] / denom);
+    for (int j = 0; j < ND; ++j)
+      store2(orow + 8 * r * D + 8 * j, acc[j][2 * r] * inv,
+             acc[j][2 * r + 1] * inv);
   }
 }
 
 size_t smem_bytes(int D, int block_q, int block_k) {
-  return sizeof(float) * (static_cast<size_t>(block_q) * D +
-                          static_cast<size_t>(block_k) * (D + 1) +
-                          static_cast<size_t>(block_k) * D +
-                          static_cast<size_t>(block_q) * 32);
+  return sizeof(float) * static_cast<size_t>(block_q + 2 * block_k) *
+         (D + 4);
 }
 
-template <typename T, int D>
+template <typename T, int D, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int BH, int Sq, int Skv, int block_q, int block_k,
-                   int causal, float scale, void* stream) {
-  if (block_q < kRowsPerWarp || block_q % kRowsPerWarp != 0 ||
-      block_q / kRowsPerWarp * 32 > kMaxThreads || block_k < 16 ||
-      block_k % 16 != 0 || Sq % block_q != 0 || Skv % block_k != 0)
-    return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(D, block_q, block_k);
+                   int BH, int Sq, int Skv, int block_q, int causal,
+                   float scale, void* stream) {
+  const size_t smem = smem_bytes(D, block_q, BK);
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   static bool attr_set = false;         // once per instantiation
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
+        flash_fwd_kernel<T, D, BK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const int n_qb = Sq / block_q;
   const long long blocks = static_cast<long long>(BH) * n_qb;
   if (blocks == 0) return cudaSuccess;
-  flash_fwd_kernel<T, D><<<static_cast<unsigned>(blocks),
-                           block_q / kRowsPerWarp * 32, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<T, D, BK><<<static_cast<unsigned>(blocks),
+                               block_q / kRowsPerWarp * 32, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), n_qb, Sq, Skv, block_q,
-      block_k, causal, scale);
+      causal, scale);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bk(const void* q, const void* k, const void* v, void* o,
+                      int BH, int Sq, int Skv, int block_q, int block_k,
+                      int causal, float scale, void* stream) {
+  switch (block_k) {
+    case 16:
+      return launch<T, D, 16>(q, k, v, o, BH, Sq, Skv, block_q, causal,
+                              scale, stream);
+    case 32:
+      return launch<T, D, 32>(q, k, v, o, BH, Sq, Skv, block_q, causal,
+                              scale, stream);
+    case 64:
+      return launch<T, D, 64>(q, k, v, o, BH, Sq, Skv, block_q, causal,
+                              scale, stream);
+    case 128:
+      return launch<T, D, 128>(q, k, v, o, BH, Sq, Skv, block_q, causal,
+                               scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int BH, int Sq, int Skv, int D, int block_q,
                      int block_k, int causal, float scale, void* stream) {
+  if (block_q < kRowsPerWarp || block_q % kRowsPerWarp != 0 ||
+      block_q / kRowsPerWarp * 32 > kMaxThreads || Sq % block_q != 0 ||
+      block_k <= 0 || Skv % block_k != 0)
+    return cudaErrorInvalidValue;
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, o, BH, Sq, Skv, block_q, block_k, causal,
-                           scale, stream);
+      return launch_bk<T, 64>(q, k, v, o, BH, Sq, Skv, block_q, block_k,
+                              causal, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, BH, Sq, Skv, block_q, block_k,
-                            causal, scale, stream);
+      return launch_bk<T, 128>(q, k, v, o, BH, Sq, Skv, block_q, block_k,
+                               causal, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -255,9 +448,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// q (BH, Sq, D), k and v (BH, Skv, D), o (BH, Sq, D); D in {64, 128};
-// Sq a multiple of block_q (a multiple of 8, at most 128), Skv of
-// block_k (a multiple of 16). scale multiplies q . k.
+// q (BH, Sq, D), k and v (BH, Skv, D), o (BH, Sq, D), 16-byte aligned;
+// D in {64, 128}; Sq a multiple of block_q (a multiple of 16, at most
+// 128), Skv of block_k (16, 32, 64 or 128). scale multiplies q . k.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* o, int BH, int Sq, int Skv, int D, int block_q,
                         int block_k, int causal, float scale, void* stream) {

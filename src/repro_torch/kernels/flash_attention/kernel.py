@@ -13,17 +13,18 @@ from repro_torch.kernels._launch import (FLOAT_SUFFIX, MAX_SMEM_BYTES,
                                          check_cuda_args, stream_handle)
 
 HEAD_DIMS = (64, 128)      # the kernel's templates; ops.py pads D to one
-ROWS_PER_WARP = 8
-MAX_BLOCK_Q = 128          # 512 threads per CTA
+BLOCK_K_VALUES = (16, 32, 64, 128)   # templates too: S lives in registers
+ROWS_PER_WARP = 16         # one m16n8k8 row block per warp
+MAX_BLOCK_Q = 128          # 256 threads per CTA
 
 _fns: dict = {}
 
 
 def smem_bytes(d: int, block_q: int, block_k: int) -> int:
-    """Dynamic shared memory of one CTA: the Q tile, a K tile (rows
-    padded to D+1 words), a V tile and a 32-wide probability row per
-    query row, all float32."""
-    return 4 * (block_q * d + block_k * (d + 1) + block_k * d + block_q * 32)
+    """Dynamic shared memory of one CTA: the Q tile, a K tile and a V
+    tile, float32, rows padded to D+4 words (conflict-free fragment
+    loads)."""
+    return 4 * (block_q + 2 * block_k) * (d + 4)
 
 
 def check_blocks(d: int, block_q: int, block_k: int) -> None:
@@ -37,9 +38,9 @@ def check_blocks(d: int, block_q: int, block_k: int) -> None:
         raise ValueError(f"flash_attention: block_q={block_q} must be a "
                          f"multiple of {ROWS_PER_WARP} in "
                          f"[{ROWS_PER_WARP}, {MAX_BLOCK_Q}]")
-    if block_k < 16 or block_k % 16:
-        raise ValueError(f"flash_attention: block_k={block_k} must be a "
-                         "positive multiple of 16")
+    if block_k not in BLOCK_K_VALUES:
+        raise ValueError(f"flash_attention: block_k={block_k} is not one "
+                         f"of {BLOCK_K_VALUES}")
     if smem_bytes(d, block_q, block_k) > MAX_SMEM_BYTES:
         raise ValueError(
             f"flash_attention: tiles of block_q={block_q}, "
@@ -54,7 +55,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Forward attention on the card, heads pre-flattened.
 
     ``q`` (BH, Sq, D), ``k``/``v`` (BH, Skv, D), ``out`` (BH, Sq, D),
-    all float32 or all bfloat16, contiguous on one CUDA device; D in
+    all float32 or all bfloat16, contiguous and 16-byte aligned on one
+    CUDA device; D in
     :data:`HEAD_DIMS`; Sq a multiple of ``block_q`` and Skv of
     ``block_k`` (ops.mha pads). Causal masking is right-aligned: query
     i sees keys ``j <= i + Skv - Sq``. ``scale`` multiplies q . k.
@@ -83,6 +85,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bh * (sq // block_q) >= 2 ** 31 or max(sq, skv) >= 2 ** 31:
         raise ValueError("flash_attention: the problem is too large")
     check_cuda_args("flash_attention", q, k, v, out)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("flash_attention: tensors must be 16-byte aligned "
+                         "(the kernel loads 16 bytes at a time)")
     fn = _fns.get(suffix)
     if fn is None:
         fn = _fns[suffix] = build.declare(

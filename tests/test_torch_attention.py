@@ -110,14 +110,19 @@ def test_head_dims_and_kernel_argument_checks():
         [64, 64, 64, 128, 128]
     with pytest.raises(ValueError, match="head dim"):
         padded_head_dim(129)
-    # Every (block_q, block_k) of the autotune grid launches at D = 128:
-    # its tiles fit a CTA's shared memory.
-    for bq in (16, 32, 64, 128):
-        for bk in (16, 32, 64, 128):
-            fa_k.check_blocks(128, bq, bk)
-            assert fa_k.smem_bytes(128, bq, bk) <= 232448
+    # Every (block_q, block_k) of the autotune grid launches at D = 64
+    # and 128: its Q, K and V tiles (rows padded to D+4 words) fit a
+    # CTA's shared memory, 202,752 bytes at the largest.
+    for d in (64, 128):
+        for bq in (16, 32, 64, 128):
+            for bk in (16, 32, 64, 128):
+                fa_k.check_blocks(d, bq, bk)
+                assert fa_k.smem_bytes(d, bq, bk) == \
+                    4 * (bq + 2 * bk) * (d + 4) <= 232448
+    # One warp owns 16 query rows: block_q = 8 and 24 are refused now.
     for bad in ((128, 12, 16), (128, 256, 16), (128, 16, 24),
-                (128, 128, 256), (96, 16, 16)):
+                (128, 128, 256), (96, 16, 16), (128, 8, 16), (64, 24, 32),
+                (64, 16, 48)):
         with pytest.raises(ValueError):
             fa_k.check_blocks(*bad)
     # A CPU tensor never reaches the kernel's launch.
@@ -125,3 +130,51 @@ def test_head_dims_and_kernel_argument_checks():
     with pytest.raises(ValueError, match="CUDA"):
         fa_k.flash_attention(x, x, x, torch.empty_like(x), causal=True,
                              block_q=128, block_k=128, scale=0.125)
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: round a float32 to 10 mantissa bits, to
+    nearest with ties away from zero (the bits stay a float32)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _tf32_product(a, b, passes):
+    """a @ b on TF32 tensor cores, products exact and summed in float64:
+    one pass (big * big) or 3xTF32 (small * big + big * small + big *
+    big, small = tf32(x - big), the small * small term dropped)."""
+    ab, bb = _tf32(a), _tf32(b)
+    out = ab.astype(np.float64) @ bb
+    if passes == 3:
+        a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+        out += a_s.astype(np.float64) @ bb + ab.astype(np.float64) @ b_s
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
+def test_3xtf32_keeps_attention_within_the_float32_gate(seed, passes,
+                                                        within):
+    """Why csrc/flash_attention.cu splits each operand: with its two
+    products (S = Q K^T, O = P V) on TF32 tensor cores, causal attention
+    at S = 256, D = 128 stays within the kernel's 2e-5 gate of float64
+    only in 3xTF32; one TF32 pass is ~1e-3 off."""
+    s_len, d = 256, 128
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((s_len, d)).astype(np.float32)
+               for _ in range(3))
+    scale = d ** -0.5
+    live = np.tril(np.ones((s_len, s_len), bool))
+
+    def attention(product):
+        s = product((q * np.float32(scale)).astype(np.float32), k.T)
+        s = np.where(live, s, -np.inf)
+        p = np.exp(s - s.max(axis=1, keepdims=True))
+        o = product(p.astype(np.float32), v)
+        return o / p.sum(axis=1, keepdims=True)
+
+    exact = attention(lambda a, b: a.astype(np.float64) @ b)
+    err = np.abs(attention(lambda a, b: _tf32_product(a, b, passes)) -
+                 exact).max()
+    assert (err <= 2e-5) == within, err

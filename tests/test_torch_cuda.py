@@ -139,22 +139,43 @@ def test_flash_attention_kernel_matches_plain(dev, q_shape, kv_shape,
     assert float((out.float().cpu() - plain.float()).abs().max()) <= tol
 
 
-def test_flash_attention_every_grid_block_pair_launches(dev):
-    """Every (block_q, block_k) of the autotune grid launches at D = 128
-    in float32 and computes the plain version's values."""
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_every_grid_block_pair_launches(dev, d):
+    """Every (block_q, block_k) of the autotune grid launches at both
+    head dims in float32 and computes the plain version's values."""
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.flash_attention.ops import attention_plain
     g = torch.Generator(device=dev).manual_seed(0)
-    q, k, v = (torch.randn(2, 256, 128, device=dev, generator=g)
+    q, k, v = (torch.randn(2, 256, d, device=dev, generator=g)
                for _ in range(3))
-    plain = attention_plain(q, k, v, causal=True, scale=128 ** -0.5)
+    plain = attention_plain(q, k, v, causal=True, scale=d ** -0.5)
     for bq in (16, 32, 64, 128):
         for bk in (16, 32, 64, 128):
             out = fa_k.flash_attention(q, k, v, torch.empty_like(q),
                                        causal=True, block_q=bq, block_k=bk,
-                                       scale=128 ** -0.5)
+                                       scale=d ** -0.5)
             torch.cuda.synchronize()
             assert float((out - plain).abs().max()) <= 2e-5, (bq, bk)
+
+
+@pytest.mark.parametrize("sq,skv,bq,bk,d", [(96, 384, 32, 128, 128),
+                                            (192, 256, 64, 128, 64),
+                                            (48, 192, 16, 64, 128)])
+def test_flash_attention_causal_more_keys_than_queries(dev, sq, skv, bq,
+                                                       bk, d):
+    """Right-aligned causal masking straight through the kernel, with
+    Skv > Sq: query i sees keys j <= i + Skv - Sq, so the diagonal
+    crosses tiles at an offset that is not a multiple of the blocks."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention.ops import attention_plain
+    rng = np.random.default_rng(sq + skv)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, n, d)).astype(
+        np.float32)).to(dev) for n in (sq, skv, skv))
+    out = fa_k.flash_attention(q, k, v, torch.empty_like(q), causal=True,
+                               block_q=bq, block_k=bk, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    plain = attention_plain(q, k, v, causal=True, scale=d ** -0.5)
+    assert float((out - plain).abs().max()) <= 2e-5
 
 
 @pytest.mark.parametrize("n,k,hb,block_r", [
