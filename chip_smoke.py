@@ -12,7 +12,16 @@ Phases, each printing one JSON line:
                at the main path's shapes and on the reference sweep's
                cases; CUDA-event medians of kernel, plain version and one
                PyTorch library call, beside the bound (bytes or flops over
-               the card's peak). Flash attention's bound is its 3xTF32
+               the card's peak). ell_spmv runs on the main path's
+               sorted-slice operands (``slots_read`` = sum(slice_k) x 32
+               beside ``nnz``), and is checked on the same rows padded
+               to K too (``plain_ms_padded``: the plain version on
+               those); its ``bound_ms`` counts the product's own bytes,
+               ``bound_ms_slots`` the slots the layout reads and
+               ``bound_ms_layout`` its perm and slice_k as well. It and
+               pack also report ``ms_warm`` (no L2 flush, as on the main
+               path) and ``floor_ms`` (an empty kernel of the same grid,
+               timed the same way). Flash attention's bound is its 3xTF32
                work on the tensor cores (``bound_ms_f32_cores`` beside
                it); its library call, SDPA, is named from a
                ``torch.profiler`` trace and held to the plain version too
@@ -77,10 +86,12 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_cuda(fn, iters: int = 60) -> float:
+def time_cuda(fn, iters: int = 60, cold: bool = True) -> float:
     """Median device milliseconds of ``fn()``: CUDA events around each
-    call, the 50 MB L2 flushed before each, launches queued behind a
-    device sleep so the host never starves the card."""
+    call, the 50 MB L2 flushed before each (``cold``; without it the
+    call finds the last one's data in L2, as back-to-back calls on the
+    main path do), launches queued behind a device sleep so the host
+    never starves the card."""
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     for _ in range(3):
@@ -90,7 +101,8 @@ def time_cuda(fn, iters: int = 60) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     torch.cuda._sleep(SLEEP_CYCLES)
     for s, e in zip(starts, ends):
-        flush.zero_()
+        if cold:
+            flush.zero_()
         s.record()
         fn()
         e.record()
@@ -138,10 +150,37 @@ def csr_of(vals_t: torch.Tensor, cols_t: torch.Tensor, n_cols: int):
                                    size=(vals.shape[0], n_cols))
 
 
+def cold_warm_floor(fn, grid, dev) -> dict:
+    """A kernel's CUDA-event times, cold and warm, beside those of an
+    empty kernel of the same grid timed the same way."""
+    from repro_torch.kernels._launch import launch_floor
+
+    def floor():
+        launch_floor(dev, *grid)
+
+    return {"ms": time_cuda(fn), "ms_warm": time_cuda(fn, cold=False),
+            "floor_ms": time_cuda(floor)}
+
+
+def ragged_ell(n, k, rng):
+    """Row lengths uniform in 0..K, slots past a row's length 0 with a
+    valid column (the layout spmv/matrix.py:partition leaves)."""
+    length = rng.integers(0, k + 1, size=n)
+    live = np.arange(k)[None, :] < length[:, None]
+    vals = np.where(live, rng.standard_normal((n, k)), 0.0).astype(
+        np.float32)
+    cols = np.where(live, rng.integers(0, n, size=(n, k)),
+                    np.arange(n)[:, None]).astype(np.int32)
+    return vals, cols, rng.standard_normal(n).astype(np.float32)
+
+
 def phase_kernels(spmv, dev) -> dict:
     from repro_torch.kernels.pack.ops import pack, pack_plain
-    from repro_torch.kernels.spmv.ops import (ell_matvec, ell_matvec_t,
-                                              ell_spmv_plain)
+    from repro_torch.kernels.spmv.kernel import SLICE_ROWS, spmv_grid
+    from repro_torch.kernels.spmv.ops import (BLOCK_N, ell_matvec,
+                                              ell_matvec_t, ell_spmv_plain,
+                                              sliced_matvec, sliced_operands,
+                                              unsliced)
 
     # Fill the halo with the values the main path gives yR.
     spmv.post_send(spmv.pack(spmv.x))
@@ -149,25 +188,45 @@ def phase_kernels(spmv, dev) -> dict:
     x, halo = spmv.x, spmv.halo.clone()
 
     calls = []
-    for name, (vt, ct), xin in (("yL", spmv.local, x),
-                                ("yR", spmv.remote, halo)):
-        out = ell_matvec_t(vt, ct, xin)
-        plain = ell_spmv_plain(vt, ct, xin)
+    for name, part, xin in (("yL", spmv.local, x), ("yR", spmv.remote, halo)):
+        vt, ct, sk, perm = part
+        pv, pc = unsliced(part)
+        out = torch.empty(vt.shape[1], dtype=torch.float32, device=dev)
+
+        def sliced():
+            return sliced_matvec(part, xin, out)
+
+        sliced()
+        padded = ell_matvec_t(pv, pc, xin)
+        plain = ell_spmv_plain(vt, ct, xin, sk, perm)
+        plain_padded = ell_spmv_plain(pv, pc, xin)
         torch.cuda.synchronize()
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"ell_spmv {name}: an entry of y was "
+                                 "not written")
         err, rel = rel_err(out, plain)
-        if not rel <= 1e-5:
-            raise AssertionError(f"ell_spmv {name}: rel err {rel} > 1e-5")
+        err_p, rel_p = rel_err(padded, plain_padded)
+        if not (rel <= 1e-5 and rel_p <= 1e-5):
+            raise AssertionError(f"ell_spmv {name}: rel err {rel} sliced, "
+                                 f"{rel_p} padded > 1e-5")
         k, n = vt.shape
         nz = vt != 0
         nnz = int(nz.sum())
+        slots = int(sk.sum()) * SLICE_ROWS
+        if not slots <= 1.05 * nnz:
+            raise AssertionError(f"ell_spmv {name}: the sorted slices read "
+                                 f"{slots} slots for {nnz} non-zeros")
         # The product's own bytes: each non-zero's value and column, each
-        # x entry it touches, y. The kernel also reads the K*N - nnz
-        # zero slots that pad every row to K (reported beside it).
+        # x entry it touches, y. The kernel also reads the slots_read -
+        # nnz zero slots of the slices' shorter rows (bound_ms_slots
+        # counts them) and the layout's perm and slice_k
+        # (bound_ms_layout counts them on top of the product's bytes).
         x_bytes = int(torch.unique(ct[nz]).numel()) * xin.element_size()
+        layout_bytes = 4 * (n + sk.numel())
         n_bytes = nnz * (vt.element_size() + 4) + x_bytes + n * 4
-        slot_bytes = k * n * (vt.element_size() + 4) + x_bytes + n * 4
+        slot_bytes = slots * (vt.element_size() + 4) + x_bytes + n * 4
         b, by = bound_ms(n_bytes, 2.0 * nnz)
-        csr = csr_of(vt, ct, xin.numel())
+        csr = csr_of(pv, pc, xin.numel())
         try:
             lib = time_cuda(lambda: torch.mv(csr, xin))
             lib_err = None
@@ -175,11 +234,18 @@ def phase_kernels(spmv, dev) -> dict:
             lib, lib_err = None, str(e)[:200]
         calls.append({
             "op": name, "K": k, "N": n, "nx": xin.numel(), "nnz": nnz,
+            "slots_read": slots, "slots_padded": k * n,
             "bytes": n_bytes, "slot_bytes": slot_bytes,
             "bound_ms_slots": bound_ms(slot_bytes, 2.0 * nnz)[0],
-            "max_abs_err": err, "rel_err": rel,
-            "ms": time_cuda(lambda: ell_matvec_t(vt, ct, xin, out=out)),
-            "plain_ms": time_cuda(lambda: ell_spmv_plain(vt, ct, xin)),
+            "bound_ms_layout": bound_ms(n_bytes + layout_bytes,
+                                        2.0 * nnz)[0],
+            "max_abs_err": max(err, err_p), "rel_err": max(rel, rel_p),
+            "equal_to_padded": bool(torch.equal(out, padded)),
+            **cold_warm_floor(sliced, spmv_grid(n, BLOCK_N), dev),
+            "plain_ms": time_cuda(lambda: ell_spmv_plain(vt, ct, xin, sk,
+                                                         perm)),
+            "plain_ms_padded": time_cuda(lambda: ell_spmv_plain(pv, pc,
+                                                                xin)),
             "library_ms": lib, "library_error": lib_err,
             "bound_ms": b, "bound_by": by})
 
@@ -196,13 +262,17 @@ def phase_kernels(spmv, dev) -> dict:
     pack_call = {
         "op": "Pack", "n": x.numel(), "m": idx.numel(), "bytes": n_bytes,
         "max_abs_err": 0.0,
-        "ms": time_cuda(lambda: pack(x, idx, out=sendbuf)),
+        **cold_warm_floor(lambda: pack(x, idx, out=sendbuf),
+                          (-(-idx.numel() // 256), 256), dev),
         "plain_ms": time_cuda(lambda: pack_plain(x, idx)),
         "library_ms": time_cuda(lambda: torch.index_select(x, 0, idx)),
         "bound_ms": b, "bound_by": by}
 
     # The reference sweep's cases (tests/test_kernels.py): ragged n and
-    # K, bf16 inputs, and pack with -1 padding.
+    # K, bf16 inputs, with every row padded to K and in sorted slices of
+    # ragged rows, at block_n 32 and 256; pack with -1 and past-the-end
+    # padding, at ragged m, and into an out (and from an idx) a few
+    # elements into its buffer, bits compared.
     sweep = []
     rng = np.random.default_rng(0)
     for n, k, dtype in ((64, 1, torch.float32), (300, 7, torch.float32),
@@ -217,22 +287,46 @@ def phase_kernels(spmv, dev) -> dict:
         out = ell_matvec(vals, cols, xs)
         plain = ell_spmv_plain(vals.T, cols.T, xs)
         _, rel = rel_err(out, plain)
+        rv, rc, rx = (torch.from_numpy(a).to(dev) for a in
+                      ragged_ell(n, k, rng))
+        s = sliced_operands(rv.T.to(dtype), rc.T)
+        rx = rx.to(dtype)
+        ref = ell_spmv_plain(*s[:2], rx, s.slice_k, s.perm)
+        rels = [rel]
+        for block_n in (32, 256):
+            got = ell_matvec_t(*s[:2], rx, block_n=block_n,
+                               slice_k=s.slice_k, perm=s.perm)
+            rels.append(rel_err(got, ref)[1])
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
-        if not rel <= tol:
-            raise AssertionError(f"ell_spmv ({n},{k},{dtype}): {rel}")
+        if not max(rels) <= tol:
+            raise AssertionError(f"ell_spmv ({n},{k},{dtype}): {rels}")
         sweep.append({"kernel": "ell_spmv", "n": n, "k": k,
-                      "dtype": str(dtype), "rel_err": rel})
-    for n, m, dtype in ((128, 64, torch.float32), (1000, 333, torch.float32),
-                        (4096, 1024, torch.bfloat16)):
+                      "dtype": str(dtype), "rel_err": rel,
+                      "sliced_rel_err": max(rels[1:])})
+    for n, m, dtype, offset in (
+            (128, 64, torch.float32, 0), (1000, 333, torch.float32, 0),
+            (4096, 1024, torch.bfloat16, 0), (1000, 1001, torch.float32, 1),
+            (4096, 4099, torch.bfloat16, 1), (150_000, 150_001,
+                                              torch.float32, 3)):
         xs = torch.from_numpy(rng.standard_normal(n).astype(
             np.float32)).to(dev, dtype)
         ids = rng.integers(0, n, m).astype(np.int32)
         ids[::7] = -1
-        ids_t = torch.from_numpy(ids).to(dev)
-        if not torch.equal(pack(xs, ids_t), pack_plain(xs, ids_t)):
-            raise AssertionError(f"pack ({n},{m},{dtype}) differs")
+        ids[1::9] = n + 3
+        ids_t = torch.from_numpy(np.concatenate(
+            [np.zeros(offset, np.int32), ids])).to(dev)[offset:]
+        buf = torch.full((m + offset,), float("nan"), dtype=dtype,
+                         device=dev)
+        got = pack(xs, ids_t, out=buf[offset:])
+        want = pack_plain(xs, ids_t)
+        words = torch.int32 if dtype == torch.float32 else torch.int16
+        if not (torch.equal(got.view(words), want.view(words)) and
+                bool(buf[:offset].isnan().all())):
+            raise AssertionError(f"pack ({n},{m},{dtype},+{offset}) "
+                                 "differs")
         sweep.append({"kernel": "pack", "n": n, "m": m,
-                      "dtype": str(dtype), "exact": True})
+                      "dtype": str(dtype), "out_offset": offset,
+                      "exact": True})
     return {"ell_spmv": calls, "pack": [pack_call], "sweep": sweep}
 
 
@@ -571,6 +665,11 @@ def phase_race(spmv, dev) -> dict:
                            reset=spmv.poison, device=dev)
     spmv_race = caught(ev, g, expand(g, reference_schedule(g)),
                        "CES-b4-PostSend")
+    # The gate holds NaN equal to NaN: a row that the sorted layout's
+    # perm missed would stay poisoned in the reference too.
+    ref = ev.reference_outputs()
+    if not all(np.isfinite(ref[k]).all() for k in ("yL", "yR")):
+        raise AssertionError("an entry of yL or yR was never written")
 
     # 2. A GPU producer and consumer on two streams, without the CSWE.
     toy = Graph()
@@ -625,6 +724,8 @@ def phase_main_path(spmv, A, x, dev) -> dict:
                 "pack": pack_k.pack.launches}
 
     ref = ev.reference_outputs()
+    if not all(np.isfinite(ref[k]).all() for k in ("yL", "yR")):
+        raise AssertionError("an entry of yL or yR was never written")
     y = ref["yL"].astype(np.float64) + ref["yR"]
     oracle = A.matvec(x)
     y_rel = float(np.abs(y - oracle).max() / np.abs(oracle).max())
@@ -707,14 +808,16 @@ def main() -> int:
     spmv = from_reference(stack_partitions(parts), x, dev)
     torch.cuda.synchronize()
     emit("setup", n=PAPER_N, nnz=PAPER_NNZ, ranks=RANKS, m=spmv.m,
-         k_local=spmv.local[0].shape[0], k_remote=spmv.remote[0].shape[0],
+         k_local=spmv.local.vals_t.shape[0],
+         k_remote=spmv.remote.vals_t.shape[0],
+         slots_read_local=int(spmv.local.slice_k.sum()) * 32,
+         slots_read_remote=int(spmv.remote.slice_k.sum()) * 32,
          seconds=time.perf_counter() - t0)
 
     kern = phase_kernels(spmv, dev)
-    kern.update(phase_attention(dev))
-    onehot = phase_onehot(dev)
-    kern["sweep"] += onehot.pop("sweep")
-    kern.update(onehot)
+    for more in (phase_attention(dev), phase_onehot(dev)):
+        kern["sweep"] += more.pop("sweep")
+        kern.update(more)
     emit("kernels", **kern)
 
     y = make_distributed_spmv(parts, dev)(x)
@@ -736,15 +839,18 @@ def main() -> int:
     launches = {**main_path["launches"], **onehot_path["launches"],
                 **autotune["launches"]}
 
-    def entry(name, source, replaces, calls, path, **extra):
+    def entry(name, source, replaces, calls, path, summed=(), **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "path": path,
                 "launches": launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in calls),
                 **{k: (None if any(c[k] is None for c in calls)
                        else sum(c[k] for c in calls))
-                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                   for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                             *summed)},
                 "bound_by": calls[0]["bound_by"], **extra}
+
+    timed = ("ms_warm", "floor_ms")
 
     fa = kern["flash_attention"][0]
 
@@ -752,10 +858,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("ell_spmv", "src/repro_torch/csrc/ell_spmv.cu",
               "src/repro/kernels/spmv/kernel.py:49", kern["ell_spmv"],
-              "main_path"),
+              "main_path", summed=(*timed, "plain_ms_padded",
+                                   "bound_ms_slots", "bound_ms_layout",
+                                   "nnz", "slots_read")),
         entry("pack", "src/repro_torch/csrc/pack.cu",
               "src/repro/kernels/pack/kernel.py:49", kern["pack"],
-              "main_path"),
+              "main_path", summed=timed),
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:80",
               kern["flash_attention"], "autotune",

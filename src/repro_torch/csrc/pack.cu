@@ -8,13 +8,18 @@
 // counterpart here, and block_c becomes the outputs per CTA. Padded
 // slots (idx = -1) give 0 as they did there.
 //
-// What bounds it on the H100: bytes. It reads idx (4 B) and one element
-// of x per output and writes one element: no arithmetic at all.
+// What bounds it on the H100: the launch. It reads idx (4 B) and one
+// element of x per output and writes one element, no arithmetic: at the
+// main path's m = 150,000, a 0.54 us byte bound. Between CUDA events it
+// takes 6.6 us, and an empty kernel of the same grid about 5 (PERF.md).
 //
 // Design: one thread per output j. idx loads and out stores are
 // coalesced across the warp; the x reads are as scattered as idx makes
 // them and go through __ldg. The kernel moves raw 2- or 4-byte words,
-// so it serves float32 and bfloat16 alike and copies bits exactly.
+// so it serves float32 and bfloat16 alike and copies bits exactly. A
+// variant that moved 16 bytes of outputs per thread (one vector load of
+// idx, all gathers, one vector store) measured no faster, so this one
+// stays.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
+
 # dtype -> suffix of the exported C function for that element type.
 FLOAT_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Shared memory one CTA can opt into on Hopper (227 KB).
@@ -30,3 +32,11 @@ def check_threads(what: str, name: str, threads: int) -> None:
     if not 1 <= int(threads) <= 1024:
         raise ValueError(f"{what}: {name}={threads} threads per CTA is "
                          "outside 1..1024")
+
+
+def launch_floor(device: torch.device, blocks: int, threads: int) -> None:
+    """Launch an empty kernel of ``blocks`` x ``threads`` on the current
+    stream of ``device``: the cost of a launch of that grid alone, timed
+    beside a kernel as its floor. Counts no launch of any kernel."""
+    fn = build.declare(build.library("launch_floor"), "launch_floor", 0, 2)
+    build.check(fn(blocks, threads, stream_handle(device)), "launch_floor")

@@ -100,8 +100,12 @@ def spmv_mulsum_space(*, n: int = 1024, k: int = 8,
     ops.ell_matvec_t`) on one seeded matrix with uniform columns.
 
     The operands are transposed once, to the K-major layout the kernel
-    reads (as the distributed SpMV stores them); the JAX factory's
-    wrapper gathered and transposed on every call.
+    reads; the JAX factory's wrapper gathered and transposed on every
+    call. The space keeps the JAX factory's problem: every row padded to
+    K, in row order. Its best block_n does not feed the distributed
+    SpMV, which multiplies the sorted-slice layout at the fixed
+    :data:`repro_torch.kernels.spmv.ops.BLOCK_N` that its dealt blocks
+    are built for.
     """
     from repro_torch.kernels.spmv.ops import ell_matvec_t
     from repro_torch.kernels.spmv.ref import ell_matvec_ref

@@ -2,7 +2,8 @@
 
 ``ell_spmv`` (csrc/ell_spmv.cu) replaces the TPU kernel
 ``repro/kernels/spmv/kernel.py:ell_mulsum`` and the XLA gather in front
-of it: the gather runs inside this kernel. ``ell_onehot``
+of it: the gather runs inside this kernel, one warp per 32-row slice
+of the sorted-slice layout or of plain ELL-T. ``ell_onehot``
 (csrc/ell_onehot.cu) replaces ``ell_onehot_mv``, the narrow-band kernel
 over window-relative columns.
 """
@@ -16,18 +17,44 @@ from repro_torch.kernels._launch import (FLOAT_SUFFIX, MAX_SMEM_BYTES,
                                          stream_handle)
 
 _fns: dict = {}
+# Rows of one slice of the sorted-slice layout: one warp, lane = row.
+SLICE_ROWS = 32
+
+
+def spmv_grid(n: int, block_n: int) -> tuple[int, int]:
+    """(CTAs, threads per CTA) of an ``ell_spmv`` launch over N rows."""
+    return (n + block_n - 1) // block_n, block_n
+
+
+def _check_layout(n: int, slice_k, perm) -> None:
+    for name, t, size in (("slice_k", slice_k, -(-n // SLICE_ROWS)),
+                          ("perm", perm, n)):
+        if t is None:
+            continue
+        if t.dtype != torch.int32:
+            raise TypeError(f"ell_spmv: {name} must be int32, got {t.dtype}")
+        if t.shape != (size,):
+            raise ValueError(f"ell_spmv: {name} has shape {tuple(t.shape)}"
+                             f", N={n} rows need ({size},)")
 
 
 def ell_spmv(vals_t: torch.Tensor, cols_t: torch.Tensor, x: torch.Tensor,
-             out: torch.Tensor, block_n: int = 256) -> torch.Tensor:
-    """``out[n] = sum_k vals_t[k, n] * x[cols_t[k, n]]`` on the card.
+             out: torch.Tensor, block_n: int = 256,
+             slice_k: torch.Tensor | None = None,
+             perm: torch.Tensor | None = None) -> torch.Tensor:
+    """``out[perm[n]] = sum_{k < slice_k[n // 32]} vals_t[k, n] *
+    x[cols_t[k, n]]`` on the card (``out[n]`` and k < K without them).
 
     ``vals_t`` (K, N) float32 or bfloat16, ``cols_t`` (K, N) int32,
-    ``x`` (nx,) of ``vals_t``'s dtype, ``out`` (N,) float32; all
-    contiguous on one CUDA device; ``block_n`` rows (threads) per CTA.
-    Launches on the current stream and does not synchronise. Columns
-    must lie in [0, nx); they are not checked here (that would
-    synchronise), so a bad one reads outside x.
+    ``x`` (nx,) of ``vals_t``'s dtype, ``out`` (N,) float32, optional
+    ``slice_k`` (ceil(N/32),) and ``perm`` (N,) int32 (the sorted-slice
+    layout, :func:`repro_torch.kernels.spmv.ops.sliced_operands`); all
+    contiguous on one CUDA device; ``block_n`` rows (threads) per CTA, a
+    multiple of 32 so that every warp is one slice. Launches on the
+    current stream and does not synchronise. Columns must lie in [0, nx)
+    and ``perm`` must be a permutation; neither is checked here (that
+    would synchronise): a bad column reads outside x, and a row that
+    ``perm`` misses is never written.
     """
     suffix = FLOAT_SUFFIX.get(vals_t.dtype)
     if suffix is None or x.dtype != vals_t.dtype:
@@ -47,16 +74,23 @@ def ell_spmv(vals_t: torch.Tensor, cols_t: torch.Tensor, x: torch.Tensor,
         raise ValueError("ell_spmv: N and nx must be below 2**31")
     if k and n and x.numel() == 0:
         raise ValueError("ell_spmv: x is empty")
+    _check_layout(n, slice_k, perm)
     check_threads("ell_spmv", "block_n", block_n)
-    check_cuda_args("ell_spmv", vals_t, cols_t, x, out)
+    if block_n % SLICE_ROWS:
+        raise ValueError(f"ell_spmv: block_n={block_n} is not a multiple "
+                         f"of {SLICE_ROWS} (a warp is one slice)")
+    layout = [t for t in (slice_k, perm) if t is not None]
+    check_cuda_args("ell_spmv", vals_t, cols_t, x, out, *layout)
     if n == 0:
         return out
     fn = _fns.get(suffix)
     if fn is None:
         fn = _fns[suffix] = build.declare(
-            build.library("ell_spmv"), f"ell_spmv_{suffix}", 4, 3)
+            build.library("ell_spmv"), f"ell_spmv_{suffix}", 6, 4)
     err = fn(vals_t.data_ptr(), cols_t.data_ptr(), x.data_ptr(),
-             out.data_ptr(), k, n, block_n, stream_handle(x.device))
+             None if slice_k is None else slice_k.data_ptr(),
+             None if perm is None else perm.data_ptr(), out.data_ptr(),
+             k, n, *spmv_grid(n, block_n), stream_handle(x.device))
     build.check(err, "ell_spmv")
     ell_spmv.launches += 1
     return out

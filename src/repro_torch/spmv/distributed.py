@@ -22,7 +22,12 @@ the stacked halo buffer, once, at set-up. The DAG's vertices
     yL        ELL SpMV kernel over the local parts
     yR        ELL SpMV kernel over the halo parts
 
-and y = yL + yR. Every buffer is allocated once here, so no op
+and y = yL + yR. Both products read the sorted-slice layout
+(:func:`repro_torch.kernels.spmv.ops.sliced_operands`), its CTAs' row
+blocks dealt out rank by rank (:func:`~repro_torch.kernels.spmv.ops.
+deal_blocks`), built once at set-up with a permutation of its own for
+each part: a row's local and remote lengths add up to its whole, so
+they sort differently. Every buffer is allocated once here, so no op
 allocates memory that crosses streams, and none of them synchronises
 beyond what its vertex means: ordering comes from the schedule's sync
 items alone.
@@ -39,7 +44,9 @@ from repro_torch.core.executor import OpImpl, build_runner, op_impl
 from repro_torch.device import resolve_device
 from repro_torch.engine.wallclock import reference_schedule
 from repro_torch.kernels.pack.ops import pack
-from repro_torch.kernels.spmv.ops import ell_matvec_t
+from repro_torch.kernels.spmv.ops import (SlicedEll, check_permutation,
+                                          deal_blocks, sliced_matvec,
+                                          sliced_operands)
 from repro_torch.spmv.matrix import RankPartition, stack_partitions
 
 
@@ -50,18 +57,17 @@ class DistributedSpmv:
     read; ``sendbuf``, ``halo``, ``yL`` and ``yR`` are written by them.
     """
 
-    def __init__(self, local_vals_t: torch.Tensor,
-                 local_cols_t: torch.Tensor,
-                 remote_vals_t: torch.Tensor,
-                 remote_cols_t: torch.Tensor,
+    def __init__(self, local: SlicedEll, remote: SlicedEll,
                  x: torch.Tensor, n_ranks: int):
-        self.device = x.device
-        self.n_ranks = n_ranks
-        self.m = x.numel() // n_ranks
-        self.local = (local_vals_t, local_cols_t)
-        self.remote = (remote_vals_t, remote_cols_t)
-        self.x = x
         n, dev = x.numel(), x.device
+        for part in (local, remote):
+            check_permutation(part.perm, n)
+        self.device = dev
+        self.n_ranks = n_ranks
+        self.m = n // n_ranks
+        self.local = local
+        self.remote = remote
+        self.x = x
         # Each rank sends its whole block (half-bandwidth == m); the
         # kernel takes any index set.
         self.send_idx = torch.arange(n, dtype=torch.int32, device=dev)
@@ -117,10 +123,10 @@ class DistributedSpmv:
         return halo
 
     def multiply_local(self, x: torch.Tensor) -> torch.Tensor:
-        return ell_matvec_t(*self.local, x, out=self.yL)
+        return sliced_matvec(self.local, x, self.yL)
 
     def multiply_remote(self, halo: torch.Tensor) -> torch.Tensor:
-        return ell_matvec_t(*self.remote, halo, out=self.yR)
+        return sliced_matvec(self.remote, halo, self.yR)
 
     def impls(self) -> dict[str, OpImpl]:
         """Op implementations for the vertices of ``spmv_dag()``."""
@@ -144,7 +150,9 @@ def from_reference(stacked: dict[str, np.ndarray], x: np.ndarray,
                    ) -> DistributedSpmv:
     """Device state from :func:`repro_torch.spmv.matrix.stack_partitions`'
     arrays (leading rank axis, the JAX package's shard_map layout) and
-    the global x (R*m,)."""
+    the global x (R*m,). Each part is stacked K-major with rank-offset
+    columns, then put in the sorted-slice layout with its blocks dealt
+    out rank by rank."""
     dev = resolve_device(device)
     r_n, m, _ = stacked["local_vals"].shape
     x = np.asarray(x, dtype=np.float32).reshape(-1)
@@ -158,15 +166,15 @@ def from_reference(stacked: dict[str, np.ndarray], x: np.ndarray,
             raise ValueError(f"column index outside [0, {width})")
         k = vals.shape[2]
         gcols = (cols.astype(np.int64) + rank * width).astype(np.int32)
-        return (torch.from_numpy(np.ascontiguousarray(
-                    vals.reshape(r_n * m, k).T)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(
-                    gcols.reshape(r_n * m, k).T)).to(dev))
+        return deal_blocks(sliced_operands(
+            torch.from_numpy(np.ascontiguousarray(
+                vals.reshape(r_n * m, k).T)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(
+                gcols.reshape(r_n * m, k).T)).to(dev)), m)
 
-    lv, lc = ell_t(stacked["local_vals"], stacked["local_cols"], m)
-    rv, rc = ell_t(stacked["remote_vals"], stacked["remote_cols"], 2 * m)
-    return DistributedSpmv(lv, lc, rv, rc, torch.from_numpy(x).to(dev),
-                           r_n)
+    local = ell_t(stacked["local_vals"], stacked["local_cols"], m)
+    remote = ell_t(stacked["remote_vals"], stacked["remote_cols"], 2 * m)
+    return DistributedSpmv(local, remote, torch.from_numpy(x).to(dev), r_n)
 
 
 def make_distributed_spmv(parts: list[RankPartition],

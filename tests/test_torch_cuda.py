@@ -76,6 +76,75 @@ def test_pack_kernel_matches_plain(dev, n, m, dtype):
     assert torch.equal(out, pack_plain(x, idx_t))
 
 
+@pytest.mark.parametrize("n,k,dtype", [
+    (64, 1, torch.float32), (300, 7, torch.float32),
+    (512, 8, torch.float32), (1024, 16, torch.bfloat16),
+    (2500, 5, torch.bfloat16)])
+@pytest.mark.parametrize("layout", ["padded", "sliced"])
+def test_ell_spmv_slices_match_plain(dev, n, k, dtype, layout):
+    """The warp-per-slice kernel on ragged rows, with every row read to K
+    or in sorted slices (slice_k and perm), at block_n 32, 96 and 256,
+    against its plain version; the sliced result is the padded one bit
+    for bit (the skipped slots hold 0, the sum order is kept)."""
+    from repro_torch.kernels.spmv.ops import ell_matvec_t, sliced_operands
+    if REPO_ROOT not in sys.path:
+        sys.path.insert(0, REPO_ROOT)
+    from chip_smoke import ragged_ell
+    vals, cols, x = ragged_ell(n, k, np.random.default_rng(n + k))
+    vt = torch.from_numpy(vals.T.copy()).to(dev, dtype)
+    ct = torch.from_numpy(cols.T.copy()).to(dev)
+    xt = torch.from_numpy(x).to(dev, dtype)
+    padded = ell_matvec_t(vt, ct, xt)
+    if layout == "sliced":
+        s = sliced_operands(vt, ct)
+        args, kw = (s.vals_t, s.cols_t, xt), {"slice_k": s.slice_k,
+                                              "perm": s.perm}
+    else:
+        args, kw = (vt, ct, xt), {}
+    plain = ell_spmv_plain(*args, **kw)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for block_n in (32, 96, 256):
+        before = spmv_k.ell_spmv.launches
+        out = torch.full((n,), float("nan"), device=dev)
+        ell_matvec_t(*args, out=out, block_n=block_n, **kw)
+        torch.cuda.synchronize()
+        assert spmv_k.ell_spmv.launches == before + 1
+        assert bool(torch.isfinite(out).all())
+        assert float((out - plain).abs().max() /
+                     plain.abs().max()) <= tol
+        assert torch.equal(out, padded)
+
+
+@pytest.mark.parametrize("m,offset,dtype,block_c", [
+    (1, 0, torch.float32, 256), (7, 0, torch.bfloat16, 256),
+    (333, 1, torch.float32, 256), (1001, 0, torch.float32, 100),
+    (4099, 3, torch.bfloat16, 128), (4099, 0, torch.bfloat16, 64),
+    (150_001, 2, torch.float32, 256), (150_000, 0, torch.float32, 256)])
+def test_pack_kernel_ragged_and_misaligned(dev, m, offset, dtype, block_c):
+    """Pack at ragged m (not a multiple of 4 or 8, nor of block_c), into
+    an out and from an idx that are views ``offset`` elements into their
+    buffers (off 16-byte alignment), at block_c not a power of two, with
+    -1 and past-the-end padding: the bits of pack_plain, nothing written
+    before the view."""
+    rng = np.random.default_rng(m + offset)
+    n = 4096
+    xs = rng.standard_normal(n).astype(np.float32)
+    xs[5] = -0.0
+    x = torch.from_numpy(xs).to(dev, dtype)
+    ids = rng.integers(0, n, m + offset).astype(np.int32)
+    ids[offset::5] = -1
+    ids[offset + 1::9] = n + 3
+    idx = torch.from_numpy(ids).to(dev)[offset:]
+    buf = torch.full((m + offset,), float("nan"), dtype=dtype, device=dev)
+    before = pack_k.pack.launches
+    got = pack(x, idx, out=buf[offset:], block_c=block_c)
+    torch.cuda.synchronize()
+    assert pack_k.pack.launches == before + 1
+    words = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(words), pack_plain(x, idx).view(words))
+    assert bool(buf[:offset].isnan().all())
+
+
 def test_comm_stream_never_aliases_schedule_streams(small_spmv):
     """The executor draws its streams from the normal-priority pool;
     the comm stream comes from the high-priority one, so no runner's

@@ -16,6 +16,8 @@ from repro_torch.core.executor import build_runner, op_impl, run_items  # noqa: 
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.engine.wallclock import (ExecutorEvaluator,  # noqa: E402
                                           reference_schedule)
+from repro_torch.kernels.spmv.ops import (BLOCK_N, WINDOW,  # noqa: E402
+                                          row_lengths, unsliced)
 from repro_torch.spmv.distributed import (from_reference,  # noqa: E402
                                           make_distributed_spmv)
 from repro_torch.spmv.matrix import (band_matrix, partition,  # noqa: E402
@@ -71,22 +73,41 @@ def test_four_rank_spmv_matches_jax_shard_map(problem, tmp_path):
 
 
 def test_from_reference_layout(problem):
-    """Stacked K-major arrays with rank-offset columns, built from the
-    very arrays the JAX package's shard_map consumes."""
+    """The sorted-slice operands, built from the very arrays the JAX
+    package's shard_map consumes: un-permuted they are those arrays
+    stacked K-major with rank-offset columns; each perm is a permutation
+    that keeps every BLOCK_N-row CTA block inside one WINDOW-row window
+    and sorts its rows longest first; slice_k is each 32-row slice's
+    widest row."""
     A, x, parts = problem
     st = stack_partitions(parts)
     spmv = from_reference(st, x, "cpu")
-    r_n, m, kl = st["local_vals"].shape
-    lv, lc = spmv.local
-    assert lv.shape == (kl, r_n * m) and lc.dtype == torch.int32
-    for r in range(r_n):
-        np.testing.assert_array_equal(lv[:, r * m:(r + 1) * m].numpy(),
-                                      st["local_vals"][r].T)
-        np.testing.assert_array_equal(lc[:, r * m:(r + 1) * m].numpy(),
-                                      st["local_cols"][r].T + r * m)
-        np.testing.assert_array_equal(
-            spmv.remote[1][:, r * m:(r + 1) * m].numpy(),
-            st["remote_cols"][r].T + r * 2 * m)
+    r_n, m, _ = st["local_vals"].shape
+    n = r_n * m
+    for part, key, width in ((spmv.local, "local", m),
+                             (spmv.remote, "remote", 2 * m)):
+        vals_t, cols_t, slice_k, perm = part
+        k = st[f"{key}_vals"].shape[2]
+        assert vals_t.shape == (k, n) and cols_t.dtype == torch.int32
+        assert perm.dtype == slice_k.dtype == torch.int32
+        p = perm.long()
+        assert torch.equal(torch.sort(p).values, torch.arange(n))
+        for b0 in range(0, n, BLOCK_N):
+            assert len(set((p[b0:b0 + BLOCK_N] // WINDOW).tolist())) == 1
+        rv, rc = unsliced(part)
+        for r in range(r_n):
+            np.testing.assert_array_equal(rv[:, r * m:(r + 1) * m].numpy(),
+                                          st[f"{key}_vals"][r].T)
+            np.testing.assert_array_equal(
+                rc[:, r * m:(r + 1) * m].numpy(),
+                st[f"{key}_cols"][r].T + r * width)
+        length = row_lengths(vals_t)
+        for b0 in range(0, n, BLOCK_N):
+            seg = length[b0:b0 + BLOCK_N]
+            assert bool((seg[:-1] >= seg[1:]).all())
+        assert slice_k.tolist() == [int(length[i:i + 32].max())
+                                    for i in range(0, n, 32)]
+    assert not torch.equal(spmv.local.perm, spmv.remote.perm)
     with pytest.raises(ValueError):
         from_reference(st, x[:-4], "cpu")
 
