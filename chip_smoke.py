@@ -18,13 +18,14 @@ Phases, each printing one JSON line:
                to K too (``plain_ms_padded``: the plain version on
                those); its ``bound_ms`` counts the product's own bytes,
                ``bound_ms_slots`` the slots the layout reads and
-               ``bound_ms_layout`` its perm and slice_k as well. It and
-               pack also report ``ms_warm`` (no L2 flush, as on the main
-               path) and ``floor_ms`` (an empty kernel of the same grid,
-               timed the same way). Flash attention's bound is its 3xTF32
-               work on the tensor cores (``bound_ms_f32_cores`` beside
-               it); its library call, SDPA, is named from a
-               ``torch.profiler`` trace and held to the plain version too
+               ``bound_ms_layout`` its perm and slice_k as well. It,
+               pack and ell_onehot also report ``ms_warm`` (no L2 flush,
+               as on the main path) and ``floor_ms`` (an empty kernel of
+               the same grid, timed the same way). Flash attention's
+               bound is its 3xTF32 work on the tensor cores
+               (``bound_ms_f32_cores`` beside it); its library call,
+               SDPA, is named from a ``torch.profiler`` trace and held to
+               the plain version too
   distributed  the 4-rank SpMV at the paper's size against the float64
                oracle
   race         two schedules with one sync removed must fail the value
@@ -86,12 +87,15 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_cuda(fn, iters: int = 60, cold: bool = True) -> float:
+def time_cuda(fn, iters: int = 60, cold: bool = True,
+              dirty: bool = True) -> float:
     """Median device milliseconds of ``fn()``: CUDA events around each
     call, the 50 MB L2 flushed before each (``cold``; without it the
     call finds the last one's data in L2, as back-to-back calls on the
     main path do), launches queued behind a device sleep so the host
-    never starves the card."""
+    never starves the card. The flush writes a 128 MB buffer, so the
+    call evicts dirty lines (written back to memory as it reads);
+    ``dirty=False`` flushes by reading that buffer instead."""
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     for _ in range(3):
@@ -102,7 +106,7 @@ def time_cuda(fn, iters: int = 60, cold: bool = True) -> float:
     torch.cuda._sleep(SLEEP_CYCLES)
     for s, e in zip(starts, ends):
         if cold:
-            flush.zero_()
+            flush.zero_() if dirty else flush.sum()
         s.record()
         fn()
         e.record()
@@ -472,7 +476,7 @@ def phase_onehot(dev) -> dict:
         "half_bandwidth": ONEHOT_HB, "block_r": br, "window": window,
         "bytes": n_bytes, "max_abs_err": err, "rel_err": rel,
         "oracle_rel_err": y_rel,
-        "ms": time_cuda(kernel),
+        **cold_warm_floor(kernel, (n // br, br), dev),
         "plain_ms": time_cuda(lambda: ell_onehot_plain(vt, cwt, xp, window,
                                                        br)),
         "library_ms": time_cuda(lambda: torch.mv(csr, x)),
@@ -713,7 +717,7 @@ def phase_main_path(spmv, A, x, dev) -> dict:
     g = spmv_dag()
     ev = ExecutorEvaluator(g, impls=spmv.impls(), env=spmv.env(),
                            reset=spmv.poison, repeats=20, warmup=3,
-                           device=dev)
+                           device=dev, store_tag=spmv.store_tag)
     spmv_k.ell_spmv.launches = 0
     pack_k.pack.launches = 0
     t0 = time.perf_counter()
@@ -875,7 +879,7 @@ def main() -> int:
         entry("ell_onehot", "src/repro_torch/csrc/ell_onehot.cu",
               "src/repro/kernels/spmv/kernel.py:98", kern["ell_onehot"],
               "none in the JAX package; its entry point ell_matvec_onehot "
-              "(onehot_path)"),
+              "(onehot_path)", summed=timed),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

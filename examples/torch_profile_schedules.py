@@ -60,7 +60,7 @@ def main(argv=None) -> None:
     spmv = from_reference(stack_partitions(partition(A, 4)), x)
     ev = ExecutorEvaluator(graph, impls=spmv.impls(), env=spmv.env(),
                            reset=spmv.poison, repeats=args.repeats,
-                           warmup=3)
+                           warmup=3, store_tag=spmv.store_tag)
     scheds = list(C.enumerate_schedules(graph, 2))
     times = np.asarray(ev.evaluate(scheds))
     order = np.argsort(times, kind="stable")

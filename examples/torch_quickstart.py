@@ -45,7 +45,8 @@ def main(argv=None) -> None:
     #    schedule is value-checked, then timed on the device.
     ev = ExecutorEvaluator(graph, impls=spmv.impls(), env=spmv.env(),
                            reset=spmv.poison, repeats=args.repeats,
-                           warmup=3, device=args.device)
+                           warmup=3, device=args.device,
+                           store_tag=spmv.store_tag)
     result = run_search(graph, MCTSSearch(graph, 2, seed=0), ev,
                         budget=args.iters, batch_size=1)
     times = result.times_array()

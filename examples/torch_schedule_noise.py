@@ -95,7 +95,8 @@ def main(argv=None) -> None:
     spmv = from_reference(stack_partitions(partition(A, 4)), x, args.device)
     ev = ExecutorEvaluator(graph, impls=spmv.impls(), env=spmv.env(),
                            reset=spmv.poison, repeats=args.repeats,
-                           warmup=args.warmup, device=args.device)
+                           warmup=args.warmup, device=args.device,
+                           store_tag=spmv.store_tag)
     scheds = list(C.enumerate_schedules(graph, 2))
     runs = [build_runner(graph, s, spmv.impls(), ev.device) for s in scheds]
     n = len(scheds)

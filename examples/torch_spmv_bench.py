@@ -4,6 +4,7 @@ their time goes.
 Usage (from the repository root, one CUDA card):
 
     PYTHONPATH=src python examples/torch_spmv_bench.py [--diagnose] [--sass]
+    PYTHONPATH=src python examples/torch_spmv_bench.py --onehot [--sass]
 
 At the paper's size (n = 150,000, nnz = 1,500,000, half-bandwidth n/4,
 4 ranks in one process, as ``chip_smoke.py`` builds it) it prints one
@@ -28,8 +29,18 @@ same grid timed the same way (the launch's floor):
   slots and bytes of vals_t and cols_t; which shows what the scattered
   gathers cost.
 
+``--onehot`` times the narrow-band kernel instead (``ell_onehot``, the
+one ``chip_smoke.py``'s onehot phase runs): at the paper's n and nnz on
+a band of half-width 512 (K = 10, block_r 256, a window of 1,280
+floats, 586 CTAs), one JSON line with its cold and warm µs, its cold µs
+with L2 flushed by a read (``us_clean_l2``: no dirty line of the flush
+to write back while it reads), those of an empty kernel of its grid,
+and a SHA-256 of y.
+
 ``--sass`` adds, for each function of the built ``libell_spmv.so`` and
-``libpack.so``, its global loads, stores and FMAs in program order
+``libpack.so`` (``libell_onehot.so`` with ``--onehot``), its global and
+shared loads, stores, FMAs, bulk copies (``UBLKCP``), barrier
+operations (``SYNCS.*``, ``BAR``) and branches in program order
 (``cuobjdump -sass``, runs of one opcode collapsed to ``OPxN``), which
 shows whether loads issue back to back or each waits on the one before.
 """
@@ -49,11 +60,13 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (PAPER_N, PAPER_NNZ, RANKS, nvidia_smi_line,  # noqa: E402,E501
+from chip_smoke import (ONEHOT_BLOCK_R, ONEHOT_HB, PAPER_N,  # noqa: E402
+                        PAPER_NNZ, RANKS, nvidia_smi_line, onehot_matrix,
                         time_cuda)
 
 SASS_OPS = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
-                      r"((?:LDG|STG|FFMA|LDS|BRA|EXIT)[.\w]*)")
+                      r"((?:LDG|STG|FFMA|LDS|STS|UBLKCP|SYNCS|BAR|BRA|EXIT)"
+                      r"[.\w]*)")
 
 
 def sass_schedule(lib: str) -> dict[str, str]:
@@ -80,14 +93,60 @@ def sass_schedule(lib: str) -> dict[str, str]:
             continue
         m = SASS_OPS.match(line)
         if m:
-            ops.append(m.group(1).split(".")[0])
+            parts = m.group(1).split(".")
+            ops.append(".".join(parts[:2]) if parts[0] == "SYNCS"
+                       else parts[0])
     return out
+
+
+def y_sha256(fn, y: torch.Tensor) -> str:
+    """SHA-256 (16 hex digits) of y's bytes after one call of ``fn``
+    into ``y``, which is filled with NaN first."""
+    y.fill_(float("nan"))
+    fn()
+    torch.cuda.synchronize()
+    return hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def onehot(tree: str, dev: torch.device, sass: bool) -> int:
+    from repro_torch.kernels import build
+    from repro_torch.kernels._launch import launch_floor
+    from repro_torch.kernels.spmv.kernel import ell_onehot
+    from repro_torch.kernels.spmv.ops import onehot_operands
+
+    _, _, (vals, cols, x) = onehot_matrix(dev)
+    br, window = ONEHOT_BLOCK_R, 2 * ONEHOT_HB + ONEHOT_BLOCK_R
+    vt, cwt, xp = onehot_operands(vals, cols, x, ONEHOT_HB, br)
+    k, n = vt.shape
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+
+    def kernel():
+        ell_onehot(vt, cwt, xp, out, window, br)
+
+    def floor():
+        launch_floor(dev, n // br, br)
+
+    print(json.dumps({
+        "kernel": "ell_onehot", "tree": tree, "K": k, "N": n,
+        "window": window, "ctas": n // br,
+        "y_sha256": y_sha256(kernel, out),
+        "us": time_cuda(kernel) * 1e3,
+        "us_warm": time_cuda(kernel, cold=False) * 1e3,
+        "us_clean_l2": time_cuda(kernel, dirty=False) * 1e3,
+        "floor_us": time_cuda(floor) * 1e3,
+        "floor_us_warm": time_cuda(floor, cold=False) * 1e3}), flush=True)
+    if sass:
+        lib = build.build()["dir"] / "libell_onehot.so"
+        print(json.dumps({"sass": "ell_onehot", "tree": tree,
+                          "functions": sass_schedule(str(lib))}), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--diagnose", action="store_true")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--onehot", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_spmv_bench: needs a CUDA device", file=sys.stderr)
@@ -101,6 +160,8 @@ def main(argv=None) -> int:
     tree = os.path.dirname(os.path.abspath(repro_torch.__file__))
     print(nvidia_smi_line(), flush=True)
     dev = torch.device("cuda")
+    if args.onehot:
+        return onehot(tree, dev, args.sass)
     A = band_matrix(n=PAPER_N, nnz=PAPER_NNZ, seed=0)
     x_np = np.random.default_rng(1).standard_normal(PAPER_N).astype(
         np.float32)
@@ -111,11 +172,7 @@ def main(argv=None) -> int:
 
     def line(fn, y=None, **fields) -> None:
         if y is not None:
-            y.fill_(float("nan"))
-            fn()
-            torch.cuda.synchronize()
-            fields["y_sha256"] = hashlib.sha256(
-                y.cpu().numpy().tobytes()).hexdigest()[:16]
+            fields["y_sha256"] = y_sha256(fn, y)
         print(json.dumps({**fields, "tree": tree,
                           "us": time_cuda(fn) * 1e3,
                           "us_warm": time_cuda(fn, cold=False) * 1e3}),

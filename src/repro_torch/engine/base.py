@@ -14,6 +14,8 @@ search-visible lives in the base class:
     file the evaluator opens and owns): looked up between the memo
     cache and ``_measure_batch`` and written after every measurement,
     so a search against a warmed store replays without measuring;
+    ``store_tag=`` names the program a backend measures (one graph can
+    carry different impls and inputs) and goes into the fingerprint;
   * ``cache_hits`` / ``store_hits`` / ``cache_misses`` accounting;
   * salvage: a backend whose batch fails part-way banks the
     measurements it already paid for (:meth:`_salvage_partial`).
@@ -39,7 +41,8 @@ class EvaluatorBase:
 
     def __init__(self, graph: "Graph | DesignSpace",
                  store: EvalStore | None = None,
-                 store_path: "str | None" = None):
+                 store_path: "str | None" = None,
+                 store_tag: str = ""):
         if store is not None and store_path is not None:
             raise ValueError(
                 "pass store= (a shared EvalStore) or store_path= "
@@ -55,6 +58,7 @@ class EvaluatorBase:
         self._owns_store = store_path is not None
         self.store = EvalStore(store_path) if store_path is not None \
             else store
+        self.store_tag = store_tag
         self._fingerprint: bytes | None = None
 
     def __len__(self) -> int:
@@ -70,10 +74,14 @@ class EvaluatorBase:
     @property
     def store_fingerprint(self) -> bytes:
         """Content address of this evaluator's measurement semantics
-        (the space's fingerprint over the objective key); lazy, so a
-        subclass ``__init__`` can finish configuring the objective."""
+        (the space's fingerprint over the objective key and the
+        ``store_tag``, when one is set); lazy, so a subclass
+        ``__init__`` can finish configuring the objective."""
         if self._fingerprint is None:
-            self._fingerprint = self.space.fingerprint(self.objective_key())
+            objective = self.objective_key()
+            if self.store_tag:
+                objective += f":{self.store_tag}"
+            self._fingerprint = self.space.fingerprint(objective)
         return self._fingerprint
 
     def fresh_evals(self) -> int:

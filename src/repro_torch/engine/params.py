@@ -26,9 +26,11 @@ Measurement protocol per canonical-unique candidate:
 
 The objective key names the platform (the card and its compute
 capability, or ``cpu``) in place of the JAX package's
-``jax.default_backend()``, so sweeps on different hardware never
-warm-start each other. The JAX package's ``repro/engine/params.py``
-without its telemetry spans and the TPU ``Machine``.
+``jax.default_backend()``, and the kernels' build
+(:func:`repro_torch.kernels.build.source_hash`), so sweeps on different
+hardware or on an earlier build of the kernels never warm-start each
+other. The JAX package's ``repro/engine/params.py`` without its
+telemetry spans and the TPU ``Machine``.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from repro_torch.device import platform_string, resolve_device
 from repro_torch.engine.base import EvaluatorBase
 from repro_torch.engine.wallclock import (_as_output_map,
                                           assert_outputs_close)
+from repro_torch.kernels.build import source_hash
 from repro_torch.space.params import ParamSpace
 
 
@@ -81,11 +84,13 @@ class KernelWallclockEvaluator(EvaluatorBase):
         self._reference: dict | None = None
 
     def objective_key(self) -> str:
-        """Kernel wall clock on this platform under this protocol
-        (``compile_mode`` moves the build around but times the same
-        quantity, so it is not part of the key)."""
+        """Kernel wall clock on this platform under this protocol, of
+        this build of the kernels (``compile_mode`` moves the build
+        around but times the same quantity, so it is not part of the
+        key)."""
         return (f"kernel-wallclock:platform={self.platform}:"
-                f"repeats={self.repeats}:warmup={self.warmup}")
+                f"repeats={self.repeats}:warmup={self.warmup}:"
+                f"build={source_hash()}")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -17,7 +17,13 @@ Per canonical-unique schedule :class:`ExecutorEvaluator`
      the paper.
 
 The objective key names the platform (card and compute capability, or
-``cpu``), so times from different hardware never mix.
+``cpu``) and the kernels' build
+(:func:`repro_torch.kernels.build.source_hash`), so times from
+different hardware or from an earlier build of the kernels never mix.
+Distinct impl/env sets on the same graph must be told apart with
+``store_tag=``; an SpMV program's is
+``repro_torch.spmv.distributed.DistributedSpmv.store_tag``, which names
+the matrix it multiplies.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from repro_torch.core.dag import BoundOp, Graph, OpKind, Schedule
 from repro_torch.core.executor import OpImpl, build_runner
 from repro_torch.device import platform_string, resolve_device
 from repro_torch.engine.base import EvaluatorBase
+from repro_torch.kernels.build import source_hash
 
 # Every output of every schedule must match the reference schedule's to
 # this relative tolerance; the same kernels on the same inputs give the
@@ -96,7 +103,10 @@ class ExecutorEvaluator(EvaluatorBase):
     gated run, so a run that reads before a write cannot pass on an
     earlier run's values. Ops without an impl (start/end) are skipped
     by the runner. ``graph`` may be a schedule space; ``base_kwargs``
-    (``store=``, ``store_path=``) go to :class:`EvaluatorBase`.
+    (``store=``, ``store_path=``, ``store_tag=``) go to
+    :class:`EvaluatorBase`. The graph alone does not say what the impls
+    compute, so an evaluator that shares a store with another program
+    passes a ``store_tag`` that names its own.
     """
 
     backend = "torch_wallclock"
@@ -118,9 +128,10 @@ class ExecutorEvaluator(EvaluatorBase):
         self._reference: dict | None = None
 
     def objective_key(self) -> str:
-        """What the measurements estimate, and on what hardware."""
+        """What the measurements estimate, on what hardware, with which
+        build of the kernels."""
         return (f"{self.backend}:{self.platform}:repeats={self.repeats}"
-                f":warmup={self.warmup}")
+                f":warmup={self.warmup}:build={source_hash()}")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -99,6 +99,13 @@ def ell_spmv(vals_t: torch.Tensor, cols_t: torch.Tensor, x: torch.Tensor,
 ell_spmv.launches = 0
 
 
+def onehot_smem_bytes(window: int) -> int:
+    """Shared memory of one ``ell_onehot`` CTA: its window's barrier (16
+    bytes) and the window, placed at the offset from a 16-byte boundary
+    that it has in x_pad (up to 3 more floats)."""
+    return 16 + 4 * (window + 3)
+
+
 def ell_onehot(vals_t: torch.Tensor, cols_win_t: torch.Tensor,
                x_pad: torch.Tensor, out: torch.Tensor, window: int,
                block_r: int = 256) -> torch.Tensor:
@@ -128,7 +135,7 @@ def ell_onehot(vals_t: torch.Tensor, cols_win_t: torch.Tensor,
     if n % block_r:
         raise ValueError(f"ell_onehot: N={n} is not a multiple of "
                          f"block_r={block_r}")
-    if window < 1 or window * 4 > MAX_SMEM_BYTES:
+    if window < 1 or onehot_smem_bytes(window) > MAX_SMEM_BYTES:
         raise ValueError(
             f"ell_onehot: a window of {window} floats does not fit the "
             f"{MAX_SMEM_BYTES} bytes of shared memory a CTA can have "

@@ -34,6 +34,8 @@ items alone.
 """
 from __future__ import annotations
 
+import hashlib
+from functools import cached_property
 from typing import Callable
 
 import numpy as np
@@ -44,9 +46,10 @@ from repro_torch.core.executor import OpImpl, build_runner, op_impl
 from repro_torch.device import resolve_device
 from repro_torch.engine.wallclock import reference_schedule
 from repro_torch.kernels.pack.ops import pack
-from repro_torch.kernels.spmv.ops import (SlicedEll, check_permutation,
-                                          deal_blocks, sliced_matvec,
-                                          sliced_operands)
+from repro_torch.kernels.spmv.kernel import SLICE_ROWS
+from repro_torch.kernels.spmv.ops import (BLOCK_N, WINDOW, SlicedEll,
+                                          check_permutation, deal_blocks,
+                                          sliced_matvec, sliced_operands)
 from repro_torch.spmv.matrix import RankPartition, stack_partitions
 
 
@@ -80,6 +83,25 @@ class DistributedSpmv:
         # (which would order it after Pack without any sync).
         self.comm = torch.cuda.Stream(device=dev, priority=-1) \
             if dev.type == "cuda" else None
+
+    @cached_property
+    def store_tag(self) -> str:
+        """What this program multiplies, for an evaluator's ``store_tag=``:
+        n, the non-zero values, the ranks, the value dtype, the layout's
+        constants and a digest of both parts' operands (values, columns,
+        slice widths, permutation), so that schedule times of two
+        matrices never share a store address, even at one size. Copies
+        the operands to the host once."""
+        digest = hashlib.sha256()
+        nnz = 0
+        for part in (self.local, self.remote):
+            nnz += int((part.vals_t != 0).sum())
+            for t in part:
+                digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return (f"spmv:n={self.x.numel()}:nnz={nnz}:ranks={self.n_ranks}:"
+                f"dtype={str(self.local.vals_t.dtype).removeprefix('torch.')}"
+                f":window={WINDOW}:block_n={BLOCK_N}:slice_rows={SLICE_ROWS}"
+                f":operands={digest.hexdigest()[:16]}")
 
     def poison(self) -> None:
         """Fill every buffer the ops write with NaN, so that a run that

@@ -24,6 +24,7 @@ from repro_torch.engine.base import EvaluatorBase  # noqa: E402
 from repro_torch.engine.params import KernelWallclockEvaluator  # noqa: E402
 from repro_torch.engine.store import (FINGERPRINT_SIZE, EvalStore,  # noqa: E402,E501
                                       store_fingerprint)
+from repro_torch.kernels.build import source_hash  # noqa: E402
 from repro_torch.kernels.autotune import (flash_attention_space,  # noqa: E402
                                           pack_space, spmv_mulsum_space)
 from repro_torch.rules import distill  # noqa: E402
@@ -268,8 +269,8 @@ def test_check_values_off_skips_the_gate():
 def test_platform_is_part_of_the_objective_key():
     sp = _spmv_grid()
     ev = E.make_evaluator(sp, "wallclock", repeats=3, warmup=2, device=CPU)
-    assert ev.objective_key() == \
-        "kernel-wallclock:platform=cpu:repeats=3:warmup=2"
+    assert ev.objective_key() == ("kernel-wallclock:platform=cpu:repeats=3"
+                                  f":warmup=2:build={source_hash()}")
     # compile_mode moves the first call around but measures the same
     # quantity: deliberately not in the key.
     ev2 = E.make_evaluator(sp, "wallclock", repeats=3, warmup=2,

@@ -249,7 +249,13 @@ def test_flash_attention_causal_more_keys_than_queries(dev, sq, skv, bq,
 
 @pytest.mark.parametrize("n,k,hb,block_r", [
     (256, 4, 32, 64), (512, 8, 64, 128), (384, 3, 48, 128),
-    (300, 5, 40, 128)])
+    (300, 5, 40, 128)] + [
+    # K = 1..16 are template instances and 17 the runtime loop; an odd hb
+    # leaves a window that is not a multiple of 16 bytes (its tail words
+    # come by plain loads), and block_r = 33 starts windows at every
+    # offset from a 16-byte boundary (head words too).
+    (2148, k, 37, block_r) for k in (1, 10, 16, 17)
+    for block_r in (32, 128, 1024, 33)])
 def test_ell_onehot_kernel_matches_plain(dev, n, k, hb, block_r):
     from repro_torch.kernels.spmv.ops import ell_matvec_onehot
     rng = np.random.default_rng(n)
@@ -265,6 +271,74 @@ def test_ell_onehot_kernel_matches_plain(dev, n, k, hb, block_r):
     plain = ell_matvec_onehot(*(torch.from_numpy(a)
                                 for a in (vals, cols, x)), hb, block_r)
     torch.testing.assert_close(out.cpu(), plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_ell_onehot_out_of_window_slot_adds_nothing_next_to_inf(dev, shift):
+    """Columns just outside the window, where Inf lies on both sides of
+    it and at its first and last word, add exactly nothing: a kernel
+    that read them, or clamped them and multiplied by 0, gives Inf or
+    NaN. ``shift`` floats into its buffer, x_pad starts at every offset
+    from a 16-byte boundary."""
+    from repro_torch.kernels.spmv.kernel import ell_onehot
+    from repro_torch.kernels.spmv.ops import ell_onehot_plain
+    k, block_r, window = 10, 128, 2 * 37 + 128
+    rng = np.random.default_rng(shift)
+    cols = rng.integers(1, window - 1, size=(k, block_r)).astype(np.int32)
+    cols[1, ::3] = -1
+    cols[2, ::5] = window
+    cols[3, ::7] = -4
+    cols[4, ::11] = window + 3
+    vals = rng.standard_normal((k, block_r)).astype(np.float32)
+    buf = np.full(window + 16, np.inf, np.float32)
+    x_pad = buf[4 + shift:4 + shift + window]
+    x_pad[1:-1] = rng.standard_normal(window - 2)
+    vt, ct = torch.from_numpy(vals).to(dev), torch.from_numpy(cols).to(dev)
+    xp = torch.from_numpy(buf).to(dev)[4 + shift:4 + shift + window]
+    assert xp.data_ptr() % 16 == 4 * shift % 16
+    out = torch.full((block_r,), float("nan"), device=dev)
+    ell_onehot(vt, ct, xp, out, window, block_r)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    plain = ell_onehot_plain(vt.cpu(), ct.cpu(), torch.from_numpy(x_pad),
+                             window, block_r)
+    torch.testing.assert_close(out.cpu(), plain, rtol=1e-5, atol=1e-5)
+
+
+def test_ell_onehot_paper_band_is_the_k_order_fma_sum(dev):
+    """At the paper's n and nnz on a band of half-width 512 (K = 10,
+    W = 1,280, 586 CTAs), y against the float32 sum in k order of each
+    slot's fused multiply-add, the arithmetic of the kernel. The
+    reference rounds each FMA through float64 (the product is exact
+    there, the sum rounded twice), so it may differ from the card's
+    single rounding in a last bit: held within 1e-6 of max |y|, with
+    the count of equal entries in the message."""
+    from repro_torch.kernels.spmv.kernel import ell_onehot
+    from repro_torch.kernels.spmv.ops import onehot_operands
+    hb, block_r, n = 512, 256, 150_000
+    A = band_matrix(n=n, nnz=1_500_000, half_bandwidth=hb, seed=0)
+    x = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    vt, cwt, xp = onehot_operands(torch.from_numpy(A.vals),
+                                  torch.from_numpy(A.cols),
+                                  torch.from_numpy(x), hb, block_r)
+    window = 2 * hb + block_r
+    assert vt.shape == (10, 150_016)
+    out = torch.empty(vt.shape[1], device=dev)
+    ell_onehot(vt.to(dev), cwt.to(dev), xp.to(dev), out, window, block_r)
+    torch.cuda.synchronize()
+    v, c, xpn = vt.numpy(), cwt.numpy().astype(np.int64), xp.numpy()
+    start = np.arange(v.shape[1]) // block_r * block_r
+    acc = np.zeros(v.shape[1], np.float32)
+    for k in range(v.shape[0]):
+        valid = (c[k] >= 0) & (c[k] < window)
+        g = xpn[start + np.clip(c[k], 0, window - 1)].astype(np.float64)
+        fma = (acc.astype(np.float64) + v[k].astype(np.float64) * g
+               ).astype(np.float32)
+        acc = np.where(valid, fma, acc)
+    got = out.cpu().numpy()
+    equal = int((got.view(np.int32) == acc.view(np.int32)).sum())
+    rel = float(np.abs(got - acc).max() / np.abs(acc).max())
+    assert rel <= 1e-6, f"rel {rel}, {equal} of {acc.size} equal"
 
 
 def test_a_refused_launch_raises(dev):
