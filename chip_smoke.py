@@ -32,7 +32,18 @@ Phases, each printing one JSON line:
                gate (and pass with it)
   main_path    the paper's loop: spmv_dag -> MCTS (budget 400) measured
                on real streams -> labels -> features -> Algorithm 1 ->
-               rules, with every kernel's launch count over that run
+               rules, with every kernel's launch count over that run;
+               then a second sweep of the same schedules under the same
+               objective without a store (``rho_repeat``: Spearman rho
+               of the two)
+  model        the H100 machine model (core/costmodel.py's Machine
+               defaults) on spmv_dag at the paper's size in float32: the
+               280 schedules' analytic makespans through ``sim`` and
+               ``vectorized`` (equal bit for bit, else a failure), their
+               best/median/worst us, Spearman rho against the main
+               path's measured times (``rho_model_vs_card``), the share
+               of schedules both put in the same performance class, and
+               the seconds each took beside the card's
   onehot_path  ell_matvec_onehot, the narrow-band SpMV's entry point, once
                at the paper's n and nnz on a band of half-width 512 (the
                kernel is on no path of the JAX package), with its launch
@@ -525,10 +536,20 @@ def phase_onehot_path(dev) -> dict:
     return {"launches": {"ell_onehot": launches}, "y_rel_err": rel}
 
 
+def ranks(a) -> np.ndarray:
+    """Ranks 0..n-1, ties given their mean rank."""
+    a = np.asarray(a, dtype=np.float64)
+    r = np.empty(len(a))
+    r[np.argsort(a, kind="stable")] = np.arange(len(a), dtype=np.float64)
+    for v in np.unique(a):
+        tied = a == v
+        if tied.sum() > 1:
+            r[tied] = r[tied].mean()
+    return r
+
+
 def spearman(a, b) -> float:
-    ra = np.argsort(np.argsort(a)).astype(np.float64)
-    rb = np.argsort(np.argsort(b)).astype(np.float64)
-    return float(np.corrcoef(ra, rb)[0, 1])
+    return float(np.corrcoef(ranks(a), ranks(b))[0, 1])
 
 
 def phase_autotune(dev) -> dict:
@@ -703,7 +724,7 @@ def phase_race(spmv, dev) -> dict:
     return {"checks": [spmv_race, toy_race]}
 
 
-def phase_main_path(spmv, A, x, dev) -> dict:
+def phase_main_path(spmv, A, x, dev) -> tuple:
     from repro_torch.core.dag import spmv_dag
     from repro_torch.core.features import featurize
     from repro_torch.engine.wallclock import ExecutorEvaluator
@@ -715,9 +736,10 @@ def phase_main_path(spmv, A, x, dev) -> dict:
     from repro_torch.search import MCTSSearch, run_search
 
     g = spmv_dag()
-    ev = ExecutorEvaluator(g, impls=spmv.impls(), env=spmv.env(),
-                           reset=spmv.poison, repeats=20, warmup=3,
-                           device=dev, store_tag=spmv.store_tag)
+    objective = dict(impls=spmv.impls(), env=spmv.env(), reset=spmv.poison,
+                     repeats=20, warmup=3, device=dev,
+                     store_tag=spmv.store_tag)
+    ev = ExecutorEvaluator(g, **objective)
     spmv_k.ell_spmv.launches = 0
     pack_k.pack.launches = 0
     t0 = time.perf_counter()
@@ -726,6 +748,10 @@ def phase_main_path(spmv, A, x, dev) -> dict:
     wall = time.perf_counter() - t0
     launches = {"ell_spmv": spmv_k.ell_spmv.launches,
                 "pack": pack_k.pack.launches}
+    # The same schedules again under the same objective, no store.
+    t0 = time.perf_counter()
+    again = ExecutorEvaluator(g, **objective).evaluate(res.schedules)
+    wall_again = time.perf_counter() - t0
 
     ref = ev.reference_outputs()
     if not all(np.isfinite(ref[k]).all() for k in ("yL", "yR")):
@@ -751,7 +777,7 @@ def phase_main_path(spmv, A, x, dev) -> dict:
         raise AssertionError("no rules table")
     print(table, flush=True)
     best, t_best = res.best()
-    return {
+    return res, {
         "platform": ev.platform, "objective": ev.objective_key(),
         "proposed": res.n_proposed, "schedules": len(res.schedules),
         "gated": ev.n_checked, "best_us": float(t_best) * 1e6,
@@ -764,7 +790,50 @@ def phase_main_path(spmv, A, x, dev) -> dict:
         "features": len(fm.features), "tree_leaves": tree.n_leaves(),
         "tree_depth": tree.depth(),
         "tree_error": tree.training_error(fm.X, labels.labels),
-        "y_rel_err": y_rel, "search_wall_s": wall, "launches": launches}
+        "y_rel_err": y_rel, "search_wall_s": wall,
+        "rho_repeat": spearman(times, again),
+        "sweep2_best_us": float(min(again)) * 1e6,
+        "sweep2_worst_us": float(max(again)) * 1e6,
+        "sweep2_wall_s": wall_again, "launches": launches}
+
+
+def phase_model(res, card_wall_s: float) -> dict:
+    """The H100 machine model on the main path's schedules, against the
+    times the card measured for them."""
+    import dataclasses
+
+    from repro_torch.core import Machine, spmv_dag
+    from repro_torch.engine import make_evaluator
+    from repro_torch.rules import label_times
+
+    g = spmv_dag(rows_per_rank=PAPER_N // RANKS,
+                 nnz_per_rank=PAPER_NNZ // RANKS, value_bytes=4)
+    t0 = time.perf_counter()
+    model = make_evaluator(g, "vectorized").evaluate(res.schedules)
+    vec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim = make_evaluator(g, "sim").evaluate(res.schedules)
+    sim_s = time.perf_counter() - t0
+    if model != sim:
+        raise AssertionError("vectorized and sim makespans differ")
+    card = res.times_array()
+    mlab, clab = label_times(model), label_times(card)
+    # Makespans within a picosecond differ only by the order of float
+    # sums: ties. A model that gives every schedule one makespan cannot
+    # rank them, and rho is undefined (null).
+    model_ps = np.round(np.asarray(model) * 1e12)
+    distinct = len(np.unique(model_ps))
+    return {
+        "machine": dataclasses.asdict(Machine()),
+        "schedules": len(model), "sim_equals_vectorized": True,
+        "best_us": min(model) * 1e6,
+        "median_us": float(np.median(model)) * 1e6,
+        "worst_us": max(model) * 1e6, "distinct_makespans": distinct,
+        "rho_model_vs_card": spearman(model_ps, card) if distinct > 1
+        else None,
+        "classes": mlab.n_classes, "card_classes": clab.n_classes,
+        "same_class_share": float(np.mean(mlab.labels == clab.labels)),
+        "vectorized_s": vec_s, "sim_s": sim_s, "card_search_s": card_wall_s}
 
 
 def main() -> int:
@@ -832,8 +901,9 @@ def main() -> int:
         raise AssertionError(f"distributed y: rel err {rel} > 1e-4")
 
     emit("race", **phase_race(spmv, dev))
-    main_path = phase_main_path(spmv, A, x, dev)
+    res, main_path = phase_main_path(spmv, A, x, dev)
     emit("main_path", **main_path)
+    emit("model", **phase_model(res, main_path["search_wall_s"]))
     del spmv
     torch.cuda.empty_cache()
     onehot_path = phase_onehot_path(dev)

@@ -1,8 +1,10 @@
-"""Program model, sync insertion, enumeration, features, executor."""
+"""Program model, sync insertion, enumeration, features, the analytic
+machine model, the measurement protocol and the executor."""
 from repro_torch.core.dag import (BoundOp, CommRole, Graph, Op, OpKind,
                                   Schedule, canonicalize_streams,
                                   halo3d_dag, spmv_dag, spmv_dag_fine,
                                   validate_schedule)
+from repro_torch.core.costmodel import Machine, SimResult, makespan, simulate
 from repro_torch.core.enumerate import count_schedules, enumerate_schedules
 from repro_torch.core.features import (DegenerateFeatureSpaceError, Feature,
                                        FeatureMatrix, featurize)
@@ -12,6 +14,7 @@ __all__ = [
     "BoundOp", "CommRole", "Graph", "Op", "OpKind", "Schedule",
     "canonicalize_streams", "halo3d_dag", "spmv_dag", "spmv_dag_fine",
     "validate_schedule", "count_schedules", "enumerate_schedules",
+    "Machine", "SimResult", "makespan", "simulate",
     "DegenerateFeatureSpaceError", "Feature", "FeatureMatrix", "featurize",
     "ExpandedItem", "expand", "expanded_names",
 ]

@@ -6,9 +6,11 @@ item by item, in schedule order, from the host thread:
   * a GPU op runs under ``torch.cuda.stream(s)`` for its stream id —
     one ``torch.cuda.Stream`` per id, created once per runner;
   * a CPU op (PostSend, PostRecv, WaitSend, WaitRecv) runs on the host;
-  * CER  -> ``torch.cuda.Event().record(stream)`` (fresh events per run),
-    CES  -> ``event.synchronize()`` (the host blocks),
-    CSWE -> ``stream.wait_event(event)``.
+  * CER  -> ``event.record(stream)``, CES -> ``event.synchronize()``
+    (the host blocks), CSWE -> ``stream.wait_event(event)``; the runner
+    owns one ``torch.cuda.Event`` per CER, created once and recorded
+    again on every run (within a run each record precedes every wait on
+    it, so a wait never sees an earlier run's record).
 
 Nothing else orders the ops: that is what the measurement measures. So
 an op implementation must not synchronise or wait on its own, and the
@@ -84,14 +86,14 @@ def run_items(graph: Graph, items: Sequence[ExpandedItem],
                                 if it.kind == "op" and it.name in gpu})}
     if len({st.cuda_stream for st in streams.values()}) != len(streams):
         raise RuntimeError(f"{len(streams)} stream ids share CUDA streams")
+    events = {it.anchor: torch.cuda.Event() for it in items
+              if it.kind == "CER"}
 
     def run(env: dict) -> dict:
         env = dict(env)
-        events: dict[str, torch.cuda.Event] = {}
         for it in items:
             if it.kind == "CER":
-                ev = events[it.anchor] = torch.cuda.Event()
-                ev.record(streams[it.stream])
+                events[it.anchor].record(streams[it.stream])
             elif it.kind == "CES":
                 for w in it.waits:
                     events[w].synchronize()

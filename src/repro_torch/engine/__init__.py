@@ -1,18 +1,34 @@
 """Evaluation backends behind one memoized contract, selected by name.
 
-``wallclock`` measures on the device: the executor on real streams and
-events for schedule spaces (:class:`ExecutorEvaluator`), the kernel
-runner sweep for parameter spaces (:class:`KernelWallclockEvaluator`);
-:func:`make_evaluator` dispatches on the space. The JAX package's
-analytic backends (``sim``, ``vectorized``, ``pool``) and the ``rpc``
-service are not ported.
+Backends:
+
+  ``sim``         the serial analytic reference: one discrete-event
+                  simulation (:mod:`repro_torch.core.costmodel`) per
+                  canonical-unique schedule, under a
+                  :class:`~repro_torch.core.costmodel.Machine` (the
+                  H100's constants by default).
+  ``vectorized``  numpy batch simulator, bit-identical to ``sim``.
+  ``pool``        ``sim``'s math sharded over a process pool; cache and
+                  accounting stay in the parent, results bit-identical.
+  ``wallclock``   measured on the device: the executor on real streams
+                  and events for schedule spaces
+                  (:class:`ExecutorEvaluator`), the kernel runner sweep
+                  for parameter spaces (:class:`KernelWallclockEvaluator`);
+                  :func:`make_evaluator` dispatches on the space.
+
+The three analytic backends run on the host and take no ``device``. The
+JAX package's ``rpc`` service is not ported.
 """
 from __future__ import annotations
 
+from repro_torch.core.costmodel import Machine
 from repro_torch.core.dag import Graph
-from repro_torch.engine.base import EvaluatorBase
+from repro_torch.engine.base import BatchEvaluator, EvaluatorBase
 from repro_torch.engine.params import KernelWallclockEvaluator
+from repro_torch.engine.pool import PoolEvaluator
 from repro_torch.engine.store import EvalStore, store_fingerprint
+from repro_torch.engine.vectorized import (GraphTables, VectorizedEvaluator,
+                                           simulate_batch, simulate_encoded)
 from repro_torch.engine.wallclock import (ExecutorEvaluator,
                                           assert_outputs_close,
                                           reference_schedule)
@@ -20,6 +36,9 @@ from repro_torch.space.base import DesignSpace, as_space
 from repro_torch.space.params import ParamSpace
 
 BACKENDS: dict[str, type[EvaluatorBase]] = {
+    "sim": BatchEvaluator,
+    "vectorized": VectorizedEvaluator,
+    "pool": PoolEvaluator,
     "wallclock": ExecutorEvaluator,
 }
 
@@ -32,14 +51,20 @@ def register_backend(name: str, cls: type[EvaluatorBase]) -> None:
 
 
 def make_evaluator(graph: "Graph | DesignSpace", backend: str = "wallclock",
+                   *, machine: Machine | None = None,
                    **kwargs) -> EvaluatorBase:
     """Construct the named evaluation backend for ``graph`` (a graph or
     a design space).
 
-    ``kwargs`` are backend-specific (``impls``/``env``/``reset`` for
-    schedule spaces; ``repeats``, ``warmup``, ``check_values``,
-    ``compile_mode`` for parameter spaces; ``device`` for both) plus
-    the persistent store (``store=`` a shared :class:`EvalStore`, or
+    The default backend is ``"wallclock"``, where the JAX package's is
+    ``"sim"``: the port's main path measures on the card. ``machine``
+    is the analytic model's constants (the H100's when ``None``).
+    ``kwargs`` are backend-specific (``n_workers`` for ``pool``;
+    ``impls``/``env``/``reset``/``t_measure_s`` for schedule spaces and
+    ``repeats``, ``warmup``, ``check_values``, ``compile_mode`` for
+    parameter spaces under ``wallclock``; ``device`` for both) plus the
+    shared base-layer knobs: ``noise_sigma`` / ``noise_seed`` and the
+    persistent store (``store=`` a shared :class:`EvalStore`, or
     ``store_path=`` a file the evaluator opens and owns).
     """
     try:
@@ -53,10 +78,12 @@ def make_evaluator(graph: "Graph | DesignSpace", backend: str = "wallclock",
         # Parameter spaces measure through their KernelRunner, not the
         # schedule executor; same registry name, same contract.
         cls = KernelWallclockEvaluator
-    return cls(space, **kwargs)
+    return cls(space, machine=machine, **kwargs)
 
 
 __all__ = ["BACKENDS", "make_evaluator", "register_backend",
-           "EvaluatorBase", "EvalStore", "store_fingerprint",
+           "EvaluatorBase", "BatchEvaluator", "VectorizedEvaluator",
+           "GraphTables", "simulate_batch", "simulate_encoded",
+           "PoolEvaluator", "EvalStore", "store_fingerprint",
            "ExecutorEvaluator", "KernelWallclockEvaluator",
-           "assert_outputs_close", "reference_schedule"]
+           "assert_outputs_close", "reference_schedule", "Machine"]

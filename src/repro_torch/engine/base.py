@@ -17,21 +17,51 @@ search-visible lives in the base class:
     ``store_tag=`` names the program a backend measures (one graph can
     carry different impls and inputs) and goes into the fingerprint;
   * ``cache_hits`` / ``store_hits`` / ``cache_misses`` accounting;
+  * measurement noise: with ``noise_sigma`` set, every evaluation draws
+    multiplicative Gaussian jitter seeded per **(canonical key, draw
+    index)** — *not* from one shared RNG stream — so noisy results are
+    a function of what was evaluated, never of batch order, worker
+    sharding, or vectorization, and equal the JAX package's draws for
+    the same ``noise_seed``;
   * salvage: a backend whose batch fails part-way banks the
     measurements it already paid for (:meth:`_salvage_partial`).
 
-The JAX package's ``repro/engine/base.py`` without the analytic
-``Machine``, the measurement noise and the telemetry spans.
+The serial analytic backend (:class:`BatchEvaluator`, registry name
+``"sim"``) lives here too: ``vectorized`` and ``pool`` are bit-locked
+against it. The analytic backends run the
+:mod:`repro_torch.core.costmodel` model under a
+:class:`~repro_torch.core.costmodel.Machine` (the H100's by default) in
+Python and numpy on the host; they take no device.
+
+The JAX package's ``repro/engine/base.py`` without the telemetry spans
+and the ``EvalBatch`` record (only the search driver's sinks read it).
 """
 from __future__ import annotations
 
+import hashlib
+import random
 from typing import Any, Sequence
 
 import numpy as np
 
+from repro_torch.core.costmodel import Machine
 from repro_torch.core.dag import Graph
 from repro_torch.engine.store import EvalStore
 from repro_torch.space.base import DesignSpace, as_space
+
+
+def _noise_gauss(noise_seed: int, key: bytes, draw: int) -> float:
+    """A standard-normal draw seeded purely by what is being evaluated.
+
+    ``repr`` of a canonical cache key (bytes) is deterministic, and
+    blake2b is stable across processes and ``PYTHONHASHSEED`` values —
+    so pooled, vectorized, and permuted evaluation all see the
+    identical noise for the j-th draw of a given implementation.
+    """
+    payload = repr((noise_seed, key, draw)).encode()
+    seed = int.from_bytes(
+        hashlib.blake2b(payload, digest_size=8).digest(), "big")
+    return random.Random(seed).gauss(0.0, 1.0)
 
 
 class EvaluatorBase:
@@ -40,6 +70,8 @@ class EvaluatorBase:
     backend = "abstract"
 
     def __init__(self, graph: "Graph | DesignSpace",
+                 machine: Machine | None = None,
+                 noise_sigma: float = 0.0, noise_seed: int = 0,
                  store: EvalStore | None = None,
                  store_path: "str | None" = None,
                  store_tag: str = ""):
@@ -50,6 +82,11 @@ class EvaluatorBase:
         self.space = as_space(graph)
         # Schedule spaces expose their graph; param spaces have none.
         self.graph = getattr(self.space, "graph", None)
+        self.machine = machine or Machine()
+        self.noise_sigma = noise_sigma
+        self.noise_seed = noise_seed
+        self._noise_draws: dict[bytes, int] = {}
+        self._durations = self.space.durations(self.machine)
         self._cache: dict[bytes, float] = {}
         self._salvaged: set[bytes] = set()
         self.cache_hits = 0
@@ -66,22 +103,30 @@ class EvaluatorBase:
 
     # -- persistent store --------------------------------------------------
     def objective_key(self) -> str:
-        """What quantity ``_measure_batch`` estimates, and on what
-        hardware; measuring backends override it so their times never
-        share a store address with another objective's."""
-        return self.backend
+        """What quantity ``_measure_batch`` estimates.
+
+        The bit-identical analytic family (sim/vectorized/pool) shares
+        ``"analytic"`` on purpose — their stored times are
+        interchangeable, so they warm-start each other. Measuring
+        backends override it (the quantity, the card, the protocol, the
+        kernels' build) so their times never share a store address with
+        another objective's.
+        """
+        return "analytic"
 
     @property
     def store_fingerprint(self) -> bytes:
         """Content address of this evaluator's measurement semantics
-        (the space's fingerprint over the objective key and the
-        ``store_tag``, when one is set); lazy, so a subclass
-        ``__init__`` can finish configuring the objective."""
+        (the space's fingerprint over the machine, the per-op durations,
+        the objective key and the ``store_tag``, when one is set); lazy,
+        so a subclass ``__init__`` can finish configuring the
+        objective."""
         if self._fingerprint is None:
             objective = self.objective_key()
             if self.store_tag:
                 objective += f":{self.store_tag}"
-            self._fingerprint = self.space.fingerprint(objective)
+            self._fingerprint = self.space.fingerprint(
+                self.machine, self._durations, objective)
         return self._fingerprint
 
     def fresh_evals(self) -> int:
@@ -104,18 +149,34 @@ class EvaluatorBase:
         }
 
     # -- the backend hook --------------------------------------------------
-    def _measure_batch(self, candidates: Sequence[Any]) -> list[float]:
-        """One time per (distinct, uncached) candidate, in order."""
+    def _measure_batch(self, candidates: Sequence[Any],
+                       encoded: np.ndarray | None = None) -> list[float]:
+        """One time per (distinct, uncached) candidate, in order.
+
+        ``encoded`` is the matching canonical encoding rows from the
+        space's ``encode_batch`` (``(K, 2, N)`` int32 for schedule
+        spaces, ``(K, D)`` value indices for parameter spaces) —
+        backends that simulate in array form use it to skip
+        re-encoding; others ignore it.
+        """
         raise NotImplementedError
 
     # -- the shared evaluation path ----------------------------------------
+    def _noisy(self, key: bytes, t: float) -> float:
+        if not self.noise_sigma:
+            return t
+        draw = self._noise_draws.get(key, 0)
+        self._noise_draws[key] = draw + 1
+        g = _noise_gauss(self.noise_seed, key, draw)
+        return t * max(0.1, 1.0 + self.noise_sigma * g)
+
     def evaluate_keyed(self, candidates: Sequence[Any]
                        ) -> list[tuple[bytes, float]]:
         """(canonical key, time) per candidate, in order; one measurement
         per distinct canonical candidate across the evaluator's life."""
         if not candidates:
             return []
-        keys, _ = self.space.encode_batch(candidates)
+        keys, encoded = self.space.encode_batch(candidates)
         miss_keys: list[bytes] = []
         miss_rows: list[int] = []
         pending: set[bytes] = set()
@@ -134,7 +195,7 @@ class EvaluatorBase:
             miss_rows.append(b)
         if miss_rows:
             misses = [candidates[b] for b in miss_rows]
-            measured = self._measure_batch(misses)
+            measured = self._measure_batch(misses, encoded[miss_rows])
             if len(measured) != len(misses):
                 raise RuntimeError(
                     f"{type(self).__name__}._measure_batch returned "
@@ -162,12 +223,15 @@ class EvaluatorBase:
                 self.cache_misses += 1
             else:
                 self.cache_hits += 1
-            out.append((key, self._cache[key]))
+            out.append((key, self._noisy(key, self._cache[key])))
         return out
 
     def evaluate(self, candidates: Sequence[Any]) -> list[float]:
         """Time per candidate, in order (see :meth:`evaluate_keyed`)."""
         return [t for _, t in self.evaluate_keyed(candidates)]
+
+    def evaluate_one(self, candidate: Any) -> float:
+        return self.evaluate([candidate])[0]
 
     def _salvage_partial(self, encoded: np.ndarray,
                          times: Sequence[float]) -> None:
@@ -189,9 +253,9 @@ class EvaluatorBase:
             self.store.put_many(self.store_fingerprint, items)
 
     def close(self) -> None:
-        """Release an owned store; idempotent. A store opened by this
-        evaluator (``store_path=``) is closed; a shared ``store=``
-        stays the caller's."""
+        """Release backend resources (worker pools, an owned store);
+        idempotent. A store opened by this evaluator (``store_path=``)
+        is closed; a shared ``store=`` stays the caller's."""
         if self._owns_store and self.store is not None:
             self.store.close()
             self.store = None
@@ -202,3 +266,17 @@ class EvaluatorBase:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+class BatchEvaluator(EvaluatorBase):
+    """The serial reference backend: one analytic-model evaluation per
+    canonical-unique candidate (a discrete-event simulation for
+    schedule spaces, the space's cost function otherwise), on the
+    host."""
+
+    backend = "sim"
+
+    def _measure_batch(self, candidates: Sequence[Any],
+                       encoded: np.ndarray | None = None) -> list[float]:
+        return [self.space.analytic_cost(c, self.machine, self._durations)
+                for c in candidates]

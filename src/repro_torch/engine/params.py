@@ -38,6 +38,7 @@ import statistics
 import time
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.device import platform_string, resolve_device
@@ -123,7 +124,8 @@ class KernelWallclockEvaluator(EvaluatorBase):
                      "output failed the value-correctness gate"))
         self.n_checked += 1
 
-    def _measure_batch(self, candidates: Sequence) -> list[float]:
+    def _measure_batch(self, candidates: Sequence,
+                       encoded: np.ndarray | None = None) -> list[float]:
         out: list[float] = []
         try:
             runs = []

@@ -11,17 +11,19 @@ by ``(fingerprint, canonical row bytes) -> time`` — so every search
 warm instead of re-measuring from zero.
 
 The JAX package's ``repro/engine/store.py`` with its imports rewritten;
-the telemetry spans and the TPU ``Machine`` are left out.
+the telemetry spans are left out.
 
 Contracts:
 
 * **Content-addressed.** The fingerprint (the space's
   :meth:`~repro_torch.space.base.DesignSpace.fingerprint`;
   :func:`store_fingerprint` for schedule spaces) hashes the graph's
-  ops and edges or the parameter grid and its problem instance, and the
-  backend's objective identity (which names the card), so results from
-  different spaces, cards or objectives can never collide — one store
-  file safely serves many searches.
+  ops and edges or the parameter grid and its problem instance, the
+  analytic :class:`~repro_torch.core.costmodel.Machine` and per-op
+  durations, and the backend's objective identity (which names the
+  card), so results from different spaces, machine constants, cards or
+  objectives can never collide — one store file safely serves many
+  searches.
 * **Crash-safe, append-only.** Records are length-prefixed and
   CRC-checksummed; writers only ever append whole records with a
   single ``O_APPEND`` write, so concurrent writers interleave at
@@ -48,6 +50,7 @@ import time
 import zlib
 from typing import Iterable
 
+from repro_torch.core.costmodel import Machine
 from repro_torch.core.dag import Graph
 
 MAGIC = b"REPRO-EVALSTORE-v1\n"
@@ -58,20 +61,31 @@ _TIME = struct.Struct("<d")
 _MIN_PAYLOAD = FINGERPRINT_SIZE + _TIME.size
 
 
-def store_fingerprint(graph: Graph, objective: str) -> bytes:
+def store_fingerprint(graph: Graph, machine: Machine,
+                      durations: dict[str, float],
+                      objective: str) -> bytes:
     """16-byte content address of *what a stored time means* for a
-    schedule space: the graph's ops (all cost metadata — the canonical
-    encoding only carries op *indices*, so op identity must come from
-    here), its edge set, and the backend's objective identity.
-    blake2b is stable across processes and ``PYTHONHASHSEED`` values.
+    schedule space.
+
+    Hashes everything that determines the mapping
+    ``canonical row bytes -> time``: the graph's ops (all cost metadata
+    — the canonical encoding only carries op *indices*, so op identity
+    must come from here), its edge set, the machine constants, the
+    resolved per-op duration table, and the backend's objective identity
+    (``"analytic"`` for the bit-identical sim/vectorized/pool family —
+    their results are interchangeable by construction, so they share a
+    fingerprint and warm-start each other — vs the measuring backends'
+    platform- and build-qualified keys). blake2b is stable across
+    processes and ``PYTHONHASHSEED`` values.
     """
     h = hashlib.blake2b(digest_size=FINGERPRINT_SIZE)
     h.update(b"objective=" + objective.encode() + b"\n")
+    h.update(repr(machine).encode() + b"\n")
     for name in sorted(graph.ops):
         op = graph.ops[name]
         h.update(repr((op.name, op.kind.value, op.flops, op.bytes_hbm,
-                       op.comm_bytes, op.comm_role.value,
-                       op.duration)).encode())
+                       op.comm_bytes, op.comm_role.value, op.duration,
+                       durations.get(name))).encode())
     for u in sorted(graph.succs):
         for v in sorted(graph.succs[u]):
             h.update(f"edge {u}->{v}\n".encode())

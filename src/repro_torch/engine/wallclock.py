@@ -10,14 +10,19 @@ Per canonical-unique schedule :class:`ExecutorEvaluator`
      computed once from :func:`reference_schedule` — any valid schedule
      must compute the same values, so a sync that failed to order two
      ops shows here. The gate cannot be turned off;
-  3. runs ``warmup - 1`` more calls, then times ``repeats`` calls and
-     keeps the **median**: ``torch.cuda.synchronize()``, the host clock,
-     the run, ``torch.cuda.synchronize()``, the host clock. A schedule
+  3. runs ``warmup - 1`` more calls, then takes ``repeats`` samples and
+     keeps their **median**. With ``t_measure_s=None`` (the default) a
+     sample is one call between two drains of the device:
+     ``torch.cuda.synchronize()``, the host clock, the run,
+     ``torch.cuda.synchronize()``, the host clock. With a float, a
+     sample is the paper's §III-C3 measurement
+     (:func:`repro_torch.core.bench.measure_cuda`): the program run back
+     to back for ``t_measure_s`` seconds, elapsed / runs. A schedule
      holds host syncs (CES), so host wall time is the objective, as in
      the paper.
 
 The objective key names the platform (card and compute capability, or
-``cpu``) and the kernels' build
+``cpu``), the protocol and the kernels' build
 (:func:`repro_torch.kernels.build.source_hash`), so times from
 different hardware or from an earlier build of the kernels never mix.
 Distinct impl/env sets on the same graph must be told apart with
@@ -34,6 +39,7 @@ from typing import Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.bench import measure_cuda
 from repro_torch.core.dag import BoundOp, Graph, OpKind, Schedule
 from repro_torch.core.executor import OpImpl, build_runner
 from repro_torch.device import platform_string, resolve_device
@@ -114,6 +120,7 @@ class ExecutorEvaluator(EvaluatorBase):
     def __init__(self, graph: Graph, *, impls: Mapping[str, OpImpl],
                  env: Mapping, reset: Callable[[], None],
                  repeats: int = 5, warmup: int = 1,
+                 t_measure_s: float | None = None,
                  device: "str | torch.device | None" = None,
                  **base_kwargs):
         super().__init__(graph, **base_kwargs)
@@ -124,14 +131,19 @@ class ExecutorEvaluator(EvaluatorBase):
         self.reset = reset
         self.repeats = max(1, repeats)
         self.warmup = max(1, warmup)
+        if t_measure_s is not None and not t_measure_s >= 0:
+            raise ValueError(f"t_measure_s must be >= 0, got {t_measure_s}")
+        self.t_measure_s = t_measure_s
         self.n_checked = 0
         self._reference: dict | None = None
 
     def objective_key(self) -> str:
-        """What the measurements estimate, on what hardware, with which
-        build of the kernels."""
+        """What the measurements estimate, on what hardware, under which
+        protocol, with which build of the kernels."""
+        protocol = ("" if self.t_measure_s is None
+                    else f":t_measure={self.t_measure_s}")
         return (f"{self.backend}:{self.platform}:repeats={self.repeats}"
-                f":warmup={self.warmup}:build={source_hash()}")
+                f":warmup={self.warmup}{protocol}:build={source_hash()}")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -172,13 +184,19 @@ class ExecutorEvaluator(EvaluatorBase):
         return time.perf_counter() - t0
 
     def measure(self, run: Callable[[dict], dict]) -> list[float]:
-        """Seconds of each of ``repeats`` timed calls of ``run``, after
-        ``warmup - 1`` untimed ones (the gated run is the first)."""
+        """Seconds of each of ``repeats`` samples of ``run`` under the
+        protocol, after ``warmup - 1`` untimed calls (the gated run is
+        the first)."""
         for _ in range(self.warmup - 1):
             self.timed(run)
-        return [self.timed(run) for _ in range(self.repeats)]
+        if self.t_measure_s is None:
+            return [self.timed(run) for _ in range(self.repeats)]
+        return [measure_cuda(lambda: run(self.env), self.device,
+                             self.t_measure_s)
+                for _ in range(self.repeats)]
 
-    def _measure_batch(self, schedules: Sequence[Schedule]) -> list[float]:
+    def _measure_batch(self, schedules: Sequence[Schedule],
+                       encoded: np.ndarray | None = None) -> list[float]:
         out: list[float] = []
         for sched in schedules:
             run = build_runner(self.graph, sched, self.impls, self.device)

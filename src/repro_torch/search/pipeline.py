@@ -16,6 +16,7 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch.core.costmodel import Machine
 from repro_torch.core.dag import Graph
 from repro_torch.core.features import FeatureMatrix
 from repro_torch.engine import make_evaluator
@@ -80,7 +81,8 @@ def run_search(graph: "Graph | DesignSpace", strategy,
                evaluator: EvaluatorBase | None = None, *, budget: int,
                batch_size: int = 1, backend: str | None = None,
                backend_kwargs: dict | None = None,
-               store_path: "str | None" = None) -> SearchResult:
+               store_path: "str | None" = None,
+               machine: Machine | None = None) -> SearchResult:
     """Drive ``strategy`` (``propose``/``observe``) for up to ``budget``
     proposals, each measured by ``evaluator``.
 
@@ -96,15 +98,23 @@ def run_search(graph: "Graph | DesignSpace", strategy,
     run), or let the call build one: ``backend`` (default
     ``"wallclock"``) with ``backend_kwargs`` and an optional
     ``store_path`` (the persistent store; a warmed one replays without
-    measuring). An evaluator built here is closed when the run ends.
+    measuring). ``machine`` is the analytic model's constants for the
+    evaluator built here; an ``evaluator`` passed in already owns its
+    machine, so the two are refused together. An evaluator built here
+    is closed when the run ends.
     """
+    if evaluator is not None and machine is not None:
+        raise ValueError(
+            "pass either machine= or evaluator= (the evaluator "
+            "already owns a machine), not both")
     space = as_space(graph)
     owned = evaluator is None
     if owned:
         kwargs = dict(backend_kwargs or {})
         if store_path is not None:
             kwargs["store_path"] = store_path
-        evaluator = make_evaluator(space, backend or "wallclock", **kwargs)
+        evaluator = make_evaluator(space, backend or "wallclock",
+                                   machine=machine, **kwargs)
     elif backend is not None or backend_kwargs or store_path is not None:
         raise ValueError(
             "pass evaluator= or backend=/backend_kwargs=/store_path=, "

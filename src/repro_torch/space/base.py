@@ -16,13 +16,13 @@ registry), trimmed to what the port's stack uses:
     pipeline distills (order/stream pairs for schedules, value
     thresholds for parameters).
   * **evaluation support** — ``fingerprint`` is the persistent-store
-    content address (:mod:`repro_torch.engine.store`).
+    content address (:mod:`repro_torch.engine.store`), ``durations``
+    the analytic per-op table, ``analytic_cost`` the simulation
+    objective where one exists.
 
 Left out: ``decode_batch`` and ``feature_universe`` (only the
-out-of-core sinks need them), ``mutate`` (only the surrogate strategies
-need it) and the analytic-model hooks
-``durations``/``analytic_cost`` of schedule spaces (the port has no
-analytic backend; the fingerprint hashes no ``Machine``).
+out-of-core sinks need them) and ``mutate`` (only the surrogate
+strategies need it).
 
 :func:`as_space` is the compatibility seam: every public entry point
 (``run_search``, ``make_evaluator``, ``distill``, the strategies)
@@ -48,7 +48,8 @@ class DesignSpace:
     ``enumerate_candidates``), the featurization block
     (``feature_basis``, ``featurize``, ``apply_features``) and
     ``fingerprint``; ``random_candidate`` has a generic default built on
-    the move block.
+    the move block, and ``durations`` / ``analytic_cost`` default to "no
+    analytic model".
     """
 
     name: str = "abstract"
@@ -141,14 +142,26 @@ class DesignSpace:
         raise NotImplementedError
 
     # -- evaluation support ------------------------------------------------
-    def fingerprint(self, objective: str) -> bytes:
+    def durations(self, machine) -> dict:
+        """Per-op analytic duration table (empty when inapplicable)."""
+        return {}
+
+    def fingerprint(self, machine, durations: dict,
+                    objective: str) -> bytes:
         """16-byte content address of *what a stored time means* in
         this space (see :mod:`repro_torch.engine.store`). Everything
         that determines the ``canonical key -> time`` mapping must be
-        hashed; spaces with different candidates, problem instances, or
-        objectives must never collide.
+        hashed; spaces with different candidates, problem instances,
+        machines, or objectives must never collide.
         """
         raise NotImplementedError
+
+    def analytic_cost(self, candidate: Any, machine,
+                      durations: dict) -> float:
+        """The analytic-model objective, where the space has one."""
+        raise NotImplementedError(
+            f"design space {self.name!r} has no analytic cost model; "
+            "evaluate it with the wallclock backend")
 
 
 # -- the registry -------------------------------------------------------------

@@ -29,8 +29,7 @@ dependency-free analytic grid for tests and smoke runs.
 
 The JAX package's ``repro/space/params.py``, with its imports rewritten;
 left out are ``decode_batch`` and the feature universe (only the
-out-of-core sinks need them), and the store fingerprint hashes no TPU
-``Machine``.
+out-of-core sinks need them).
 """
 from __future__ import annotations
 
@@ -118,7 +117,8 @@ class ParamSpace(DesignSpace):
     ``dims`` is an ordered ``[(name, values), ...]``; candidates are
     value tuples in that order. ``runner`` attaches wallclock
     measurement (see :class:`KernelRunner`), ``analytic_cost_fn`` an
-    analytic objective (``fn(params_dict) -> float``; tests), and
+    analytic objective (``fn(params_dict) -> float``) for the ``sim``
+    backend, and
     ``signature`` names the fixed problem instance
     (shapes, dtypes, flags) so store fingerprints of the same grid on
     different instances never collide.
@@ -277,15 +277,23 @@ class ParamSpace(DesignSpace):
         return X
 
     # -- evaluation support ------------------------------------------------
-    def fingerprint(self, objective: str) -> bytes:
+    def fingerprint(self, machine, durations: dict,
+                    objective: str) -> bytes:
         from repro_torch.engine.store import FINGERPRINT_SIZE
         h = hashlib.blake2b(digest_size=FINGERPRINT_SIZE)
         h.update(b"objective=" + objective.encode() + b"\n")
         h.update(b"param-space=" + self.name.encode() + b"\n")
         h.update(b"signature=" + self.signature.encode() + b"\n")
+        h.update(repr(machine).encode() + b"\n")
         for name, values in self.dims:
             h.update(repr((name, values)).encode() + b"\n")
         return h.digest()
+
+    def analytic_cost(self, candidate: Sequence, machine,
+                      durations: dict) -> float:
+        if self.analytic_cost_fn is None:
+            return super().analytic_cost(candidate, machine, durations)
+        return float(self.analytic_cost_fn(self.as_dict(candidate)))
 
 
 def demo_param_space(name: str = "demo") -> ParamSpace:

@@ -6,9 +6,10 @@ relabeling, :func:`tie_key` its total order, :func:`eligible_items` the
 stream-bijection-pruned move
 set shared by MCTS expansion and rollouts, :func:`random_schedule`
 the uniform rollout policy, and :class:`ScheduleSpace` the protocol
-over them: the JAX package's ``repro/space/schedule.py`` without the
-analytic-model hooks, so cache keys, features and trajectories are
-the reference's.
+over them: the JAX package's ``repro/space/schedule.py`` (without
+``decode_batch``, ``mutate`` and the feature universe), so cache keys,
+store addresses, features, trajectories and analytic costs are the
+reference's.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from repro_torch.core.costmodel import op_durations, simulate
 from repro_torch.core.dag import BoundOp, Graph, OpKind, Schedule
 from repro_torch.core.enumerate import enumerate_schedules
 from repro_torch.core.features import (FeatureBasis, FeatureMatrix,
@@ -199,7 +201,17 @@ class ScheduleSpace(DesignSpace):
         return apply_features(self.graph, list(schedules), features)
 
     # -- evaluation support ------------------------------------------------
-    def fingerprint(self, objective: str) -> bytes:
+    def durations(self, machine) -> dict:
+        return op_durations(self.graph, machine)
+
+    def fingerprint(self, machine, durations: dict,
+                    objective: str) -> bytes:
         # Runtime import: the engine package imports this module.
         from repro_torch.engine.store import store_fingerprint
-        return store_fingerprint(self.graph, objective)
+        return store_fingerprint(self.graph, machine, durations,
+                                 objective)
+
+    def analytic_cost(self, schedule: Schedule, machine,
+                      durations: dict) -> float:
+        return simulate(self.graph, schedule, machine,
+                        durations=durations).makespan

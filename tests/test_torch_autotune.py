@@ -74,7 +74,7 @@ class TableEvaluator(EvaluatorBase):
         self.time_of = time_of
         self.measured: list = []
 
-    def _measure_batch(self, candidates):
+    def _measure_batch(self, candidates, encoded=None):
         self.measured += list(candidates)
         return [self.time_of(c) for c in candidates]
 
@@ -167,16 +167,20 @@ def test_store_duplicate_records_first_wins(store_path):
 
 def test_fingerprints_separate_spaces_grids_and_objectives():
     g1, g2 = TC.spmv_dag(), TC.spmv_dag_fine()
-    fps = {store_fingerprint(g1, "a"), store_fingerprint(g2, "a"),
-           store_fingerprint(g1, "b"),
-           ScheduleSpace(g1).fingerprint("c"),
-           _spmv_grid().fingerprint("a"),
-           _spmv_grid((32,)).fingerprint("a"),
+    m = TC.Machine()
+    d1, d2 = ScheduleSpace(g1).durations(m), ScheduleSpace(g2).durations(m)
+    fps = {store_fingerprint(g1, m, d1, "a"),
+           store_fingerprint(g2, m, d2, "a"),
+           store_fingerprint(g1, m, d1, "b"),
+           ScheduleSpace(g1).fingerprint(m, d1, "c"),
+           _spmv_grid().fingerprint(m, {}, "a"),
+           _spmv_grid((32,)).fingerprint(m, {}, "a"),
            spmv_mulsum_space(n=256, k=4, block_values=(32, 64),
-                             device=CPU).fingerprint("a"),
-           _spmv_grid().fingerprint("b")}
+                             device=CPU).fingerprint(m, {}, "a"),
+           _spmv_grid().fingerprint(m, {}, "b")}
     assert len(fps) == 8 and all(len(f) == FINGERPRINT_SIZE for f in fps)
-    assert ScheduleSpace(g1).fingerprint("a") == store_fingerprint(g1, "a")
+    assert ScheduleSpace(g1).fingerprint(m, d1, "a") == \
+        store_fingerprint(g1, m, d1, "a")
 
 
 # -- the kernel wall-clock evaluator (tests/test_kernel_autotune.py) ---------
@@ -191,7 +195,9 @@ def test_kernel_wallclock_dispatch_and_requirements():
     with pytest.raises(ValueError, match="compile_mode"):
         E.make_evaluator(sp, "wallclock", compile_mode="eager", device=CPU)
     with pytest.raises(ValueError, match="unknown evaluation backend"):
-        E.make_evaluator(sp, "sim")
+        E.make_evaluator(sp, "rpc")
+    with pytest.raises(NotImplementedError, match="no analytic cost"):
+        E.make_evaluator(sp, "sim").evaluate([next(sp.enumerate_candidates())])
     g = TC.spmv_dag()
     assert E.make_evaluator(g, "wallclock", impls={}, env={},
                             reset=lambda: None, device=CPU).graph is g

@@ -176,6 +176,76 @@ def test_removed_syncs_are_caught_by_the_gate(small_spmv, dev):
     assert all(c["caught"] for c in checks)
 
 
+# -- the paper's measurement protocol and the runner's owned events ------------
+
+def test_measure_cuda_times_a_device_sleep(dev):
+    """measure_cuda of a ~25 ms device sleep returns within 20% of the
+    sleep's CUDA-event time: the window waits for the device work its
+    samples enqueued."""
+    from repro_torch.core.bench import measure_cuda
+    if REPO_ROOT not in sys.path:
+        sys.path.insert(0, REPO_ROOT)
+    from chip_smoke import SLEEP_CYCLES
+
+    def sleep():
+        torch.cuda._sleep(SLEEP_CYCLES)
+
+    sleep()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    sleep()
+    end.record()
+    end.synchronize()
+    slept_s = start.elapsed_time(end) * 1e-3
+    assert 0.01 < slept_s < 0.1
+    got = measure_cuda(sleep, dev, t_measure_s=0.1)
+    assert abs(got - slept_s) <= 0.2 * slept_s
+
+
+def test_paper_protocol_gates_and_times_a_schedule(dev):
+    """ExecutorEvaluator(t_measure_s=...) at n = 2,048: the gate runs,
+    then repeats windows are timed; the key names the protocol."""
+    import repro_torch.core as C
+    from repro_torch.engine import ExecutorEvaluator
+    A = band_matrix(n=2048, nnz=16384, seed=5)
+    x = np.random.default_rng(6).standard_normal(2048).astype(np.float32)
+    spmv = from_reference(stack_partitions(partition(A, 4)), x, dev)
+    g = C.spmv_dag()
+    ev = ExecutorEvaluator(g, impls=spmv.impls(), env=spmv.env(),
+                           reset=spmv.poison, repeats=3, t_measure_s=0.005,
+                           device=dev, store_tag=spmv.store_tag)
+    sched = next(iter(C.enumerate_schedules(g, 2)))
+    before = spmv_k.ell_spmv.launches
+    (t,) = ev.evaluate([sched])
+    assert ev.n_checked == 1 and 0.0 < t < 0.005
+    # 3 windows of >= 5 ms of runs, two products a run: many launches.
+    assert spmv_k.ell_spmv.launches - before > 2 * 3 * 2
+    assert ":t_measure=0.005:" in ev.objective_key()
+
+
+def test_owned_events_survive_back_to_back_runs(small_spmv):
+    """The runner records its own events again on every run: 100 runs of
+    a two-stream schedule back to back leave yL and yR as the first
+    run's, bit for bit."""
+    import repro_torch.core as C
+    from repro_torch.core.executor import build_runner
+    _, _, spmv = small_spmv
+    g = C.spmv_dag()
+    sched = next(s for s in C.enumerate_schedules(g, 2)
+                 if len({i.stream for i in s.items} - {None}) == 2)
+    run = build_runner(g, sched, spmv.impls(), "cuda")
+    spmv.poison()
+    first = {k: v.clone() for k, v in run(spmv.env()).items()
+             if k in ("yL", "yR")}
+    torch.cuda.synchronize()
+    for _ in range(100):
+        out = run(spmv.env())
+    torch.cuda.synchronize()
+    for k, v in first.items():
+        assert bool(torch.isfinite(v).all())
+        assert torch.equal(out[k], v), k
+
+
 # -- flash attention and the narrow-band SpMV -----------------------------------
 
 ATTN_CASES = [((2, 3, 256, 64), (2, 3, 256, 64), torch.float32, True),

@@ -26,7 +26,7 @@ class TableEvaluator(EvaluatorBase):
         self.table = table
         self.measured: list[tuple] = []
 
-    def _measure_batch(self, schedules):
+    def _measure_batch(self, schedules, encoded=None):
         keys = [canonical_key(s) for s in schedules]
         self.measured += keys
         return [self.table[k] for k in keys]
