@@ -44,6 +44,18 @@ Phases, each printing one JSON line:
                path's measured times (``rho_model_vs_card``), the share
                of schedules both put in the same performance class, and
                the seconds each took beside the card's
+  driver       the search driver (driver/driver.py) over the same 280
+               measured schedules: SurrogateGuided with the gradient-boosted
+               surrogate, screened by expected improvement, sim_budget 140,
+               streaming to the dataset, histogram and telemetry sinks
+               under an enabled obs registry: measured / gated / store-hit
+               counts, the kernels' launches, whether the histogram sink's
+               out-of-core distill equals the dataset sink's dense one field
+               by field (a mismatch fails), the surrogate's Spearman rho
+               against the measured times of the schedules it screened,
+               seconds per span beside the phase's wall, and the path of
+               the Perfetto trace it writes (chiprun_out/driver_trace.json);
+               then a warm replay from a store, which must measure nothing
   onehot_path  ell_matvec_onehot, the narrow-band SpMV's entry point, once
                at the paper's n and nnz on a band of half-width 512 (the
                kernel is on no path of the JAX package), with its launch
@@ -797,6 +809,139 @@ def phase_main_path(spmv, A, x, dev) -> tuple:
         "sweep2_wall_s": wall_again, "launches": launches}
 
 
+DRIVER_SPANS = ("driver.propose", "driver.acquire", "driver.evaluate",
+                "driver.observe", "engine.measure", "rules.distill")
+
+
+def tree_fields(report) -> dict:
+    """A rules report's tree and rules, field by field: the preorder
+    splits (feature, threshold), each leaf's rows, weighted class counts
+    and class, the labels, the features, the rulesets and the training
+    error."""
+    splits, leaves = [], []
+
+    def walk(nd):
+        if nd.is_leaf:
+            leaves.append((nd.n_samples, [float(v) for v in nd.value],
+                           nd.majority_class()))
+            return
+        splits.append((int(nd.feature), float(nd.threshold)))
+        walk(nd.left)
+        walk(nd.right)
+
+    walk(report.tree.root)
+    return {"splits": splits, "leaves": leaves,
+            "labels": report.labeling.labels.tolist(),
+            "features": report.feature_matrix.names(),
+            "rulesets": [(r.class_label, [x.text() for x in r.rules],
+                          r.n_samples) for r in report.rulesets],
+            "training_error": report.training_error}
+
+
+def phase_driver(spmv, dev) -> dict:
+    """SearchDriver over the paper's measured SpMV schedules, with the
+    telemetry it reports through."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.core.dag import spmv_dag
+    from repro_torch.driver import DatasetSink, HistogramSink, SearchDriver
+    from repro_torch.engine.store import EvalStore
+    from repro_torch.engine.wallclock import ExecutorEvaluator
+    from repro_torch.kernels.pack import kernel as pack_k
+    from repro_torch.kernels.spmv import kernel as spmv_k
+    from repro_torch.search import SurrogateGuided
+
+    g = spmv_dag()
+    objective = dict(impls=spmv.impls(), env=spmv.env(), reset=spmv.poison,
+                     repeats=20, warmup=3, device=dev,
+                     store_tag=spmv.store_tag)
+    run = dict(budget=None, batch_size=4, sim_budget=140,
+               acquisition="expected_improvement")
+    trace = os.path.join(ROOT, "chiprun_out", "driver_trace.json")
+
+    def strategy():
+        return SurrogateGuided(g, 2, seed=0, surrogate="boost")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = EvalStore(os.path.join(tmp, "driver.store"))
+        ev = ExecutorEvaluator(g, store=store, **objective)
+        strat = strategy()
+        ds, hs = DatasetSink(g), HistogramSink(g)
+        tel = obs.Telemetry([obs.PerfettoExporter(trace)])
+        spmv_k.ell_spmv.launches = 0
+        pack_k.pack.launches = 0
+        t0 = time.perf_counter()
+        with obs.use(tel):
+            res = SearchDriver(g, strat, ev, sinks=[ds, hs, "telemetry"],
+                               **run).run()
+            launches = {"ell_spmv": spmv_k.ell_spmv.launches,
+                        "pack": pack_k.pack.launches}
+            dense, ooc = ds.distill(), hs.distill()
+        wall = time.perf_counter() - t0
+        tel.close()
+        spans = tel.spans_by_name()
+
+        # The same search again from the store: it must measure nothing
+        # and retrace the cold run.
+        warm_ev = ExecutorEvaluator(g, store=store, **objective)
+        warm = SearchDriver(g, strategy(), warm_ev, **run).run()
+        store.close()
+
+    if not (res.cache_misses == ev.n_checked >= 140 and
+            len(res.schedules) == res.cache_misses):
+        raise AssertionError(f"{ev.n_checked} gated, {res.cache_misses} "
+                             f"measured, {len(res.schedules)} schedules")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never ran in the driver: {launches}")
+    if not all(np.isfinite(t) and t > 0.0 for t in res.times):
+        raise AssertionError("a measured time is not finite and positive")
+    if not (warm.cache_misses == 0 and warm.store_hits == res.cache_misses
+            and warm.times == res.times and warm_ev.n_checked == 0):
+        raise AssertionError(f"warm replay measured {warm.cache_misses}, "
+                             f"{warm.store_hits} store hits")
+    fd, fo = tree_fields(dense), tree_fields(ooc)
+    differ = sorted(k for k in fd if fd[k] != fo[k])
+    if differ or hs.times != ds.times or dense.render() != ooc.render():
+        raise AssertionError(f"histogram distill differs from dense in "
+                             f"{differ}")
+    missing = [n for n in DRIVER_SPANS if n not in spans]
+    if missing or not os.path.isfile(trace):
+        raise AssertionError(f"no span {missing} or no trace {trace}")
+    quality = strat.screening_quality()
+    top = ("driver.propose", "driver.acquire", "driver.evaluate",
+           "driver.observe", "rules.distill")
+    span_sum = sum(spans[n]["total_s"] for n in top)
+    times = res.times_array()
+    return {
+        "objective": ev.objective_key(), "proposed": res.n_proposed,
+        "measured": res.cache_misses, "gated": ev.n_checked,
+        "store_hits": res.store_hits, "memory_hits": res.cache_hits,
+        "rounds": len(res.telemetry), "launches": launches,
+        "best_us": float(times.min()) * 1e6,
+        "median_us": float(np.median(times)) * 1e6,
+        "worst_us": float(times.max()) * 1e6,
+        "surrogate_rho": quality["spearman"],
+        "surrogate_compared": quality["n_compared"],
+        "surrogate_screened": quality["n_screened"],
+        "surrogate_mean_rel_err": quality["mean_rel_err"],
+        "histogram_equals_dense": True,
+        "fields_compared": sorted(fd),
+        "classes": dense.labeling.n_classes,
+        "tree_leaves": dense.tree.n_leaves(),
+        "training_error": dense.training_error,
+        "span_s": {n: spans[n]["total_s"] for n in DRIVER_SPANS},
+        "span_count": {n: spans[n]["count"] for n in DRIVER_SPANS},
+        "span_sum_s": span_sum, "span_sum_of": list(top), "wall_s": wall,
+        "span_share_of_wall": span_sum / wall,
+        "stage_s": {"dense": dense.stage_seconds,
+                    "histogram": ooc.stage_seconds},
+        "trace": os.path.relpath(trace, ROOT),
+        "warm_replay": {"measured": warm.cache_misses,
+                        "store_hits": warm.store_hits,
+                        "same_times": warm.times == res.times}}
+
+
 def phase_model(res, card_wall_s: float) -> dict:
     """The H100 machine model on the main path's schedules, against the
     times the card measured for them."""
@@ -904,6 +1049,8 @@ def main() -> int:
     res, main_path = phase_main_path(spmv, A, x, dev)
     emit("main_path", **main_path)
     emit("model", **phase_model(res, main_path["search_wall_s"]))
+    driver = phase_driver(spmv, dev)
+    emit("driver", **driver)
     del spmv
     torch.cuda.empty_cache()
     onehot_path = phase_onehot_path(dev)
@@ -913,10 +1060,17 @@ def main() -> int:
     launches = {**main_path["launches"], **onehot_path["launches"],
                 **autotune["launches"]}
 
+    by_path = {"main_path": main_path["launches"],
+               "driver": driver["launches"],
+               "onehot_path": onehot_path["launches"],
+               "autotune": autotune["launches"]}
+
     def entry(name, source, replaces, calls, path, summed=(), **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "path": path,
                 "launches": launches[name],
+                "launches_by_path": {p: n[name] for p, n in by_path.items()
+                                     if name in n},
                 "max_abs_err": max(c["max_abs_err"] for c in calls),
                 **{k: (None if any(c[k] is None for c in calls)
                        else sum(c[k] for c in calls))

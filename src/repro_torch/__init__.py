@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of the paper's loop (the JAX package ``repro`` is
 the reference).
 
-    Graph (core.dag) -> MCTS (search.mcts) over (order x stream) schedules
+    Graph (core.dag) -> a strategy (search: MCTS, surrogate-screened,
+        portfolio) over (order x stream) schedules, driven round by round
+        by driver.SearchDriver (acquisitions, sinks; telemetry in obs)
         -> each schedule expanded with Table III syncs (core.sync) and
            measured on real CUDA streams and events (core.executor under
            engine.wallclock), running the distributed SpMV

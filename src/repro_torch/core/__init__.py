@@ -7,7 +7,9 @@ from repro_torch.core.dag import (BoundOp, CommRole, Graph, Op, OpKind,
 from repro_torch.core.costmodel import Machine, SimResult, makespan, simulate
 from repro_torch.core.enumerate import count_schedules, enumerate_schedules
 from repro_torch.core.features import (DegenerateFeatureSpaceError, Feature,
-                                       FeatureMatrix, featurize)
+                                       FeatureBasis, FeatureMatrix,
+                                       FeatureUniverse, apply_features,
+                                       featurize)
 from repro_torch.core.sync import ExpandedItem, expand, expanded_names
 
 __all__ = [
@@ -15,6 +17,7 @@ __all__ = [
     "canonicalize_streams", "halo3d_dag", "spmv_dag", "spmv_dag_fine",
     "validate_schedule", "count_schedules", "enumerate_schedules",
     "Machine", "SimResult", "makespan", "simulate",
-    "DegenerateFeatureSpaceError", "Feature", "FeatureMatrix", "featurize",
+    "DegenerateFeatureSpaceError", "Feature", "FeatureBasis",
+    "FeatureMatrix", "FeatureUniverse", "apply_features", "featurize",
     "ExpandedItem", "expand", "expanded_names",
 ]

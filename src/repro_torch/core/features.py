@@ -15,7 +15,10 @@ orderings) are dropped — they have no discriminatory power.
 The matrix fill is vectorized: per schedule we store only the positions
 of its expanded items (one integer per item), and the full
 (schedules × pairs) matrix is produced by numpy index operations over a
-position matrix — no per-feature Python loop.
+position matrix — no per-feature Python loop. :class:`FeatureBasis`
+absorbs new schedules without re-expanding the corpus (the online
+surrogates train on it), and :class:`FeatureUniverse` tracks the
+candidate features by name only (the out-of-core histogram sink).
 """
 from __future__ import annotations
 
@@ -164,6 +167,50 @@ class FeatureBasis:
         return FeatureMatrix([feats[j] for j in keep],
                              np.ascontiguousarray(X[:, keep])
                              .view(np.int8))
+
+
+class FeatureUniverse:
+    """Names-only candidate-feature tracker for out-of-core corpora.
+
+    The O(|items|) companion of :class:`FeatureBasis`: ``add`` absorbs
+    schedules by recording *which* expanded items occur — never their
+    positions — so memory stays independent of corpus size.
+    ``candidate_features()`` lists the same candidate features, in the
+    same order, as ``FeatureBasis._raw()`` over an equal corpus
+    (sorted-universe order pairs, then sorted-GPU stream pairs), which
+    is what lets a histogram sink prune constant columns blockwise
+    with :func:`apply_features` and still match the in-memory basis
+    feature for feature. ``merge`` unions two hosts' universes.
+    """
+
+    def __init__(self, graph: Graph):
+        self.graph = graph
+        self.gpu = sorted(graph.gpu_ops())
+        self._names: set[str] = set()
+
+    def __len__(self) -> int:
+        return len(self._names)
+
+    def add(self, schedules: list[Schedule]) -> "FeatureUniverse":
+        for s in schedules:
+            self._names.update(expanded_names(self.graph, s))
+        return self
+
+    def merge(self, other: "FeatureUniverse") -> "FeatureUniverse":
+        """Absorb another universe (sharded hosts); in place."""
+        self._names |= other._names
+        return self
+
+    def candidate_features(self) -> list[Feature]:
+        """Unpruned candidate features in ``FeatureBasis._raw()`` order."""
+        names = sorted(self._names)
+        iu, iv = np.triu_indices(len(names), k=1)
+        feats = [Feature("order", names[a], names[b])
+                 for a, b in zip(iu, iv)]
+        gu, gv = np.triu_indices(len(self.gpu), k=1)
+        feats += [Feature("stream", self.gpu[a], self.gpu[b])
+                  for a, b in zip(gu, gv)]
+        return feats
 
 
 def featurize(graph: Graph, schedules: list[Schedule]) -> FeatureMatrix:

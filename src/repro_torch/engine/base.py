@@ -33,17 +33,22 @@ against it. The analytic backends run the
 :class:`~repro_torch.core.costmodel.Machine` (the H100's by default) in
 Python and numpy on the host; they take no device.
 
-The JAX package's ``repro/engine/base.py`` without the telemetry spans
-and the ``EvalBatch`` record (only the search driver's sinks read it).
+Every batch is an ``engine.batch`` telemetry span (:mod:`repro_torch.obs`)
+with its memory hits, store hits and misses, and every call of the hook
+an ``engine.measure`` span inside it; :meth:`EvaluatorBase.evaluate_batch`
+packs a batch's results as the :class:`EvalBatch` record the search
+driver streams to its sinks. The JAX package's ``repro/engine/base.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import random
-from typing import Any, Sequence
+from typing import Any, Iterator, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.costmodel import Machine
 from repro_torch.core.dag import Graph
 from repro_torch.engine.store import EvalStore
@@ -62,6 +67,30 @@ def _noise_gauss(noise_seed: int, key: bytes, draw: int) -> float:
     seed = int.from_bytes(
         hashlib.blake2b(payload, digest_size=8).digest(), "big")
     return random.Random(seed).gauss(0.0, 1.0)
+
+
+@dataclasses.dataclass
+class EvalBatch:
+    """One evaluated proposal batch — the record streamed to sinks.
+
+    Every round of the search driver (:mod:`repro_torch.driver`) yields
+    one :class:`EvalBatch` with aligned ``schedules`` (candidates) /
+    canonical ``keys`` / ``times``, exactly the ``(key, time)`` pairs
+    :meth:`EvaluatorBase.evaluate_keyed` returns, in proposal order
+    (duplicates included — run-level dedup is the consumer's choice,
+    not the evaluator's). Iterating yields ``(candidate, key, time)``
+    triples.
+    """
+
+    schedules: list[Any]
+    keys: list[bytes]
+    times: np.ndarray                    # float64, aligned
+
+    def __len__(self) -> int:
+        return len(self.schedules)
+
+    def __iter__(self) -> Iterator[tuple[Any, bytes, float]]:
+        return iter(zip(self.schedules, self.keys, self.times))
 
 
 class EvaluatorBase:
@@ -176,6 +205,24 @@ class EvaluatorBase:
         per distinct canonical candidate across the evaluator's life."""
         if not candidates:
             return []
+        batch_span = obs.span("engine.batch", backend=self.backend,
+                              n=len(candidates))
+        batch_span.__enter__()
+        hits0, store0 = self.cache_hits, self.store_hits
+        misses0 = self.cache_misses
+        try:
+            out = self._evaluate_keyed(candidates)
+        finally:
+            batch_span.set(
+                memory_hits=self.cache_hits - hits0,
+                store_hits=self.store_hits - store0,
+                misses=self.cache_misses - misses0,
+                noise_draws=len(candidates) if self.noise_sigma else 0)
+            batch_span.__exit__(None, None, None)
+        return out
+
+    def _evaluate_keyed(self, candidates: Sequence[Any]
+                        ) -> list[tuple[bytes, float]]:
         keys, encoded = self.space.encode_batch(candidates)
         miss_keys: list[bytes] = []
         miss_rows: list[int] = []
@@ -195,7 +242,9 @@ class EvaluatorBase:
             miss_rows.append(b)
         if miss_rows:
             misses = [candidates[b] for b in miss_rows]
-            measured = self._measure_batch(misses, encoded[miss_rows])
+            with obs.span("engine.measure", backend=self.backend,
+                          n=len(misses)):
+                measured = self._measure_batch(misses, encoded[miss_rows])
             if len(measured) != len(misses):
                 raise RuntimeError(
                     f"{type(self).__name__}._measure_batch returned "
@@ -229,6 +278,16 @@ class EvaluatorBase:
     def evaluate(self, candidates: Sequence[Any]) -> list[float]:
         """Time per candidate, in order (see :meth:`evaluate_keyed`)."""
         return [t for _, t in self.evaluate_keyed(candidates)]
+
+    def evaluate_batch(self, candidates: Sequence[Any]) -> EvalBatch:
+        """One :class:`EvalBatch` record for ``candidates``: the values,
+        cache, meters and noise of :meth:`evaluate_keyed`, packed as the
+        record the search driver hands to its sinks."""
+        keyed = self.evaluate_keyed(candidates)
+        return EvalBatch(
+            schedules=list(candidates),
+            keys=[k for k, _ in keyed],
+            times=np.asarray([t for _, t in keyed], dtype=np.float64))
 
     def evaluate_one(self, candidate: Any) -> float:
         return self.evaluate([candidate])[0]

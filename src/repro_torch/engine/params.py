@@ -29,8 +29,10 @@ capability, or ``cpu``) in place of the JAX package's
 ``jax.default_backend()``, and the kernels' build
 (:func:`repro_torch.kernels.build.source_hash`), so sweeps on different
 hardware or on an earlier build of the kernels never warm-start each
-other. The JAX package's ``repro/engine/params.py`` without its
-telemetry spans and the TPU ``Machine``.
+other. The two phases are the ``kernel.compile`` and ``kernel.timing``
+telemetry spans (:mod:`repro_torch.obs`), each with the seconds the
+value gate took inside it. The JAX package's ``repro/engine/params.py``
+without the TPU ``Machine``.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import platform_string, resolve_device
 from repro_torch.engine.base import EvaluatorBase
 from repro_torch.engine.wallclock import (_as_output_map,
@@ -127,25 +130,42 @@ class KernelWallclockEvaluator(EvaluatorBase):
     def _measure_batch(self, candidates: Sequence,
                        encoded: np.ndarray | None = None) -> list[float]:
         out: list[float] = []
+        gate_s = 0.0
+
+        def gated_check(result, cand):
+            nonlocal gate_s
+            g0 = time.perf_counter()
+            self._check(result, cand)
+            gate_s += time.perf_counter() - g0
+
         try:
             runs = []
-            for cand in candidates:
-                run = self.runner.build(self.space.as_dict(cand))
-                runs.append(run)
-                if self.compile_mode == "batch":
-                    # Build + gate the whole batch ahead of timing.
-                    result = self._call(run)
-                    if self.check_values:
-                        self._check(result, cand)
-            for cand, run in zip(candidates, runs):
-                if self.compile_mode == "per_candidate":
-                    result = self._call(run)
-                    if self.check_values:
-                        self._check(result, cand)
-                for _ in range(self.warmup - 1):
-                    self._call(run)
-                out.append(statistics.median(
-                    self._timed(run) for _ in range(self.repeats)))
+            with obs.span("kernel.compile", n=len(candidates),
+                          mode=self.compile_mode) as compile_span:
+                for cand in candidates:
+                    run = self.runner.build(self.space.as_dict(cand))
+                    runs.append(run)
+                    if self.compile_mode == "batch":
+                        # Build + gate the whole batch ahead of timing.
+                        result = self._call(run)
+                        if self.check_values:
+                            gated_check(result, cand)
+                compile_span.set(gate_s=gate_s)
+            compile_gate_s = gate_s
+            with obs.span("kernel.timing", n=len(candidates),
+                          repeats=self.repeats) as timing_span:
+                for cand, run in zip(candidates, runs):
+                    if self.compile_mode == "per_candidate":
+                        result = self._call(run)
+                        if self.check_values:
+                            gated_check(result, cand)
+                    for _ in range(self.warmup - 1):
+                        self._call(run)
+                    out.append(statistics.median(
+                        self._timed(run) for _ in range(self.repeats)))
+                timing_span.set(gate_s=gate_s - compile_gate_s)
+            if self.check_values:
+                obs.counter("kernel.gate_checks").add(len(candidates))
         finally:
             # If a candidate fails the gate mid-batch, the timings
             # already paid for are banked (memo cache + store) and

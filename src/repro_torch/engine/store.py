@@ -10,8 +10,9 @@ by ``(fingerprint, canonical row bytes) -> time`` — so every search
 (CI runs, benchmark sweeps, many users tuning the same kernel) starts
 warm instead of re-measuring from zero.
 
-The JAX package's ``repro/engine/store.py`` with its imports rewritten;
-the telemetry spans are left out.
+The JAX package's ``repro/engine/store.py`` with its imports rewritten:
+opening is a ``store.open`` telemetry span, every write a
+``store.append`` span (:mod:`repro_torch.obs`).
 
 Contracts:
 
@@ -50,6 +51,7 @@ import time
 import zlib
 from typing import Iterable
 
+from repro_torch import obs
 from repro_torch.core.costmodel import Machine
 from repro_torch.core.dag import Graph
 
@@ -108,7 +110,7 @@ class EvalStore:
         self._mem: dict[bytes, dict[bytes, float]] = {}
         self.n_records = 0
         self.n_truncated_bytes = 0
-        # read/append accounting (surfaced by stats()):
+        # read/append accounting (surfaced by stats() and telemetry):
         self.n_bytes_read = 0          # file bytes parsed at open
         self.n_records_appended = 0    # records this handle wrote
         self.n_bytes_appended = 0      # bytes this handle wrote
@@ -122,11 +124,18 @@ class EvalStore:
         self._fd: int | None = os.open(
             self.path, os.O_RDWR | os.O_CREAT | os.O_APPEND, 0o644)
         try:
-            self._load()
+            with obs.span("store.open", path=self.path) as sp:
+                self._load()
+                sp.set(records=self.n_records,
+                       truncated_bytes=self.n_truncated_bytes)
         except Exception:
             os.close(self._fd)
             self._fd = None
             raise
+        if self.n_truncated_bytes:
+            obs.event("store.truncated_tail", path=self.path,
+                      bytes=self.n_truncated_bytes)
+            obs.counter("store.truncated_tails").add(1)
 
     # -- load / recovery ---------------------------------------------------
     def _load(self) -> None:
@@ -240,7 +249,9 @@ class EvalStore:
             buf += _LEN.pack(zlib.crc32(payload))
             n_new += 1
         if buf:
-            os.write(self._fd, bytes(buf))
+            with obs.span("store.append", records=n_new,
+                          bytes=len(buf)):
+                os.write(self._fd, bytes(buf))
             self.n_records += n_new
             self.n_records_appended += n_new
             self.n_bytes_appended += len(buf)

@@ -1,13 +1,20 @@
-"""The search loop: strategy x evaluator -> deduplicated observations.
+"""The single search entry point: strategy x evaluator -> dataset.
 
-:func:`run_search` is the JAX package's ``SearchDriver`` loop with no
-acquisition and no sinks: the same budget clamping and the same
-first-observation-per-canonical-candidate record, so the same strategy,
-seed and times give the same result. It drives a schedule space (a
-``Graph``) or any :class:`~repro_torch.space.base.DesignSpace`.
-``SearchResult.dataset()`` emits the (features, labels, times) triple
-the rules pipeline consumes; :func:`repro_torch.rules.distill` turns a
-whole result into a rules report.
+:func:`run_search` drives any strategy against any evaluation backend
+(measured on the card by default) over a schedule space (a ``Graph``)
+or any :class:`~repro_torch.space.base.DesignSpace`, and collects the
+deduplicated (candidate, time) observations. ``SearchResult.dataset()``
+emits the (features, labels, times) triple the rules pipeline consumes;
+:func:`repro_torch.rules.distill` turns a whole result into a rules
+report.
+
+The loop itself lives in :class:`repro_torch.driver.SearchDriver`;
+``run_search`` constructs a driver with no acquisition override and no
+sinks. Construct a driver directly to screen pools with a named
+acquisition (``ucb``, ``expected_improvement``) or to stream evaluated
+batches to sinks. The JAX package's ``repro/search/pipeline.py`` with
+the port's signature (evaluator third, ``budget`` keyword-only and
+required, the ``wallclock`` backend by default).
 """
 from __future__ import annotations
 
@@ -19,7 +26,6 @@ import numpy as np
 from repro_torch.core.costmodel import Machine
 from repro_torch.core.dag import Graph
 from repro_torch.core.features import FeatureMatrix
-from repro_torch.engine import make_evaluator
 from repro_torch.engine.base import EvaluatorBase
 from repro_torch.rules.labels import Labeling, label_times
 from repro_torch.space.base import DesignSpace, as_space
@@ -45,6 +51,11 @@ class SearchResult:
     # paid measurement; 0 without a store.
     store_hits: int = 0
     space: DesignSpace | None = None
+    # One dict per driver round — {round, n, n_fresh, best, evaluate_s,
+    # memory_hits, store_hits, misses} — filled only when a telemetry
+    # registry (repro_torch.obs) is enabled during the run, else None.
+    # Observational: never part of the result's identity.
+    telemetry: "list[dict] | None" = None
 
     def design_space(self) -> DesignSpace:
         """The searched space (wrapping ``graph`` when not recorded)."""
@@ -78,74 +89,53 @@ class SearchResult:
 
 
 def run_search(graph: "Graph | DesignSpace", strategy,
-               evaluator: EvaluatorBase | None = None, *, budget: int,
+               evaluator: EvaluatorBase | None = None, *,
+               budget: int | None,
                batch_size: int = 1, backend: str | None = None,
                backend_kwargs: dict | None = None,
+               sim_budget: int | None = None,
+               stall_limit: int = 1000,
+               store=None,
                store_path: "str | None" = None,
                machine: Machine | None = None) -> SearchResult:
     """Drive ``strategy`` (``propose``/``observe``) for up to ``budget``
     proposals, each measured by ``evaluator``.
 
     ``budget`` counts proposals, not distinct candidates (an exhaustive
-    run passes ``space.n_candidates()``); the run ends early when the
-    strategy proposes nothing. ``batch_size`` candidates are asked for
-    per ``propose``; 1 is the paper's strictly sequential loop. A
-    strategy that returns more than asked is clamped to the remaining
-    budget. Every proposal is observed; the result keeps the first
-    observation per canonical candidate.
+    run passes ``space.n_candidates()``); ``None`` runs until the
+    strategy exhausts or, for strategies that never return an empty
+    batch, until ``stall_limit`` consecutive proposals bring no fresh
+    evaluation. ``batch_size`` candidates are asked for per
+    ``propose``; 1 is the paper's strictly sequential loop. A strategy
+    that returns more than asked is clamped to the remaining budget.
+    Every proposal is observed; the result keeps the first observation
+    per canonical candidate.
+
+    ``sim_budget`` bounds fresh evaluations (paid measurements plus
+    store warm hits) instead of proposals: the loop stops once that
+    many distinct candidates were evaluated. It is checked between
+    batches, so a batch may overshoot by up to ``batch_size - 1``.
+    Whenever the loop is not bounded by a proposal ``budget``, or a
+    ``sim_budget`` is set, ``stall_limit`` breaks it after that many
+    consecutive proposals without a fresh evaluation.
 
     Pass a preconfigured ``evaluator`` (its memo cache outlives the
     run), or let the call build one: ``backend`` (default
-    ``"wallclock"``) with ``backend_kwargs`` and an optional
-    ``store_path`` (the persistent store; a warmed one replays without
-    measuring). ``machine`` is the analytic model's constants for the
-    evaluator built here; an ``evaluator`` passed in already owns its
-    machine, so the two are refused together. An evaluator built here
-    is closed when the run ends.
+    ``"wallclock"``) with ``backend_kwargs`` and an optional persistent
+    store (``store=`` a shared :class:`~repro_torch.engine.store.
+    EvalStore`, or ``store_path=`` a file the evaluator opens and
+    owns; a warmed store replays without measuring). ``machine`` is
+    the analytic model's constants for the evaluator built here; an
+    ``evaluator`` passed in already owns its machine, so the two are
+    refused together, as are ``evaluator`` and ``backend``. An
+    evaluator built here is closed when the run ends.
     """
-    if evaluator is not None and machine is not None:
-        raise ValueError(
-            "pass either machine= or evaluator= (the evaluator "
-            "already owns a machine), not both")
-    space = as_space(graph)
-    owned = evaluator is None
-    if owned:
-        kwargs = dict(backend_kwargs or {})
-        if store_path is not None:
-            kwargs["store_path"] = store_path
-        evaluator = make_evaluator(space, backend or "wallclock",
-                                   machine=machine, **kwargs)
-    elif backend is not None or backend_kwargs or store_path is not None:
-        raise ValueError(
-            "pass evaluator= or backend=/backend_kwargs=/store_path=, "
-            "not both (attach the store to your own evaluator)")
-    ev = evaluator
-    try:
-        hits0, misses0, store0 = ev.cache_hits, ev.cache_misses, \
-            ev.store_hits
-        schedules: list = []
-        times: list[float] = []
-        seen: set[bytes] = set()
-        n_proposed = 0
-        while n_proposed < budget:
-            ask = min(batch_size, budget - n_proposed)
-            batch = strategy.propose(ask)[:ask]
-            if not batch:
-                break
-            n_proposed += len(batch)
-            for cand, (key, t) in zip(batch, ev.evaluate_keyed(batch)):
-                strategy.observe(cand, float(t))
-                if key not in seen:
-                    seen.add(key)
-                    schedules.append(cand)
-                    times.append(float(t))
-        return SearchResult(graph=getattr(space, "graph", None),
-                            schedules=schedules, times=times,
-                            n_proposed=n_proposed,
-                            cache_hits=ev.cache_hits - hits0,
-                            cache_misses=ev.cache_misses - misses0,
-                            store_hits=ev.store_hits - store0,
-                            space=space)
-    finally:
-        if owned:
-            ev.close()
+    # Lazy: repro_torch.driver.driver imports this module for
+    # SearchResult.
+    from repro_torch.driver.driver import SearchDriver
+    return SearchDriver(graph, strategy, evaluator, budget=budget,
+                        batch_size=batch_size, backend=backend,
+                        backend_kwargs=backend_kwargs,
+                        sim_budget=sim_budget, stall_limit=stall_limit,
+                        store=store, store_path=store_path,
+                        machine=machine).run()

@@ -9,20 +9,19 @@ registry), trimmed to what the port's stack uses:
     ``candidate_key``/``tie_key`` are the per-candidate hashable and
     total-order forms.
   * **moves** — sequential construction (``moves``/``finalize``, what
-    MCTS expands), whole-candidate sampling (``random_candidate``) and
-    full enumeration (``enumerate_candidates``) for the strategies.
+    MCTS expands), whole-candidate sampling (``random_candidate``),
+    elite mutation (``mutate``) and full enumeration
+    (``enumerate_candidates``) for the strategies.
   * **featurization** — ``feature_basis``/``featurize``/
-    ``apply_features`` produce the binary feature matrices the rules
-    pipeline distills (order/stream pairs for schedules, value
-    thresholds for parameters).
+    ``apply_features`` produce the binary feature matrices the
+    surrogates train on and the rules pipeline distills (order/stream
+    pairs for schedules, value thresholds for parameters);
+    ``decode_batch`` and ``feature_universe`` let an out-of-core sink
+    keep only canonical encodings and featurize them block by block.
   * **evaluation support** — ``fingerprint`` is the persistent-store
     content address (:mod:`repro_torch.engine.store`), ``durations``
     the analytic per-op table, ``analytic_cost`` the simulation
     objective where one exists.
-
-Left out: ``decode_batch`` and ``feature_universe`` (only the
-out-of-core sinks need them) and ``mutate`` (only the surrogate
-strategies need it).
 
 :func:`as_space` is the compatibility seam: every public entry point
 (``run_search``, ``make_evaluator``, ``distill``, the strategies)
@@ -47,9 +46,9 @@ class DesignSpace:
     ``move_key``, ``finalize``, ``candidate_moves``,
     ``enumerate_candidates``), the featurization block
     (``feature_basis``, ``featurize``, ``apply_features``) and
-    ``fingerprint``; ``random_candidate`` has a generic default built on
-    the move block, and ``durations`` / ``analytic_cost`` default to "no
-    analytic model".
+    ``fingerprint``; ``random_candidate`` and ``mutate`` have generic
+    defaults built on the move block, and ``durations`` /
+    ``analytic_cost`` default to "no analytic model".
     """
 
     name: str = "abstract"
@@ -65,6 +64,20 @@ class DesignSpace:
         batch order or history).
         """
         raise NotImplementedError
+
+    def decode_batch(self, enc: np.ndarray) -> list:
+        """Candidates back from canonical ``encode_batch`` rows.
+
+        The inverse of ``encode_batch`` on its own output: accepts the
+        ``(B, ...)`` int32 array (or the flattened per-row form — the
+        cache-key bytes reinterpreted) and returns the canonical
+        candidate each row denotes. This is what lets an out-of-core
+        sink store only compact encodings and re-featurize blocks on
+        the fly. Optional — spaces that never feed a histogram sink
+        need not implement it.
+        """
+        raise NotImplementedError(
+            f"design space {self.name!r} cannot decode encodings")
 
     def candidate_key(self, candidate: Any):
         """Hashable canonical identity of one candidate (dedup key)."""
@@ -120,6 +133,20 @@ class DesignSpace:
             prefix.append(rng.choice(options))
 
     # -- featurization -----------------------------------------------------
+    def mutate(self, candidate: Any, rng: random.Random) -> Any:
+        """Truncate at a random point and recomplete randomly: the
+        elite-mutation move of :class:`~repro_torch.search.surrogate.
+        SurrogateGuided` (one ``randrange`` for the cut, one ``choice``
+        per rebuilt move, as the JAX package consumes ``rng``)."""
+        seq = list(self.candidate_moves(candidate))
+        cut = rng.randrange(1, len(seq)) if len(seq) > 1 else 0
+        prefix = seq[:cut]
+        while True:
+            options = self.moves(prefix)
+            if not options:
+                return self.finalize(prefix)
+            prefix.append(rng.choice(options))
+
     def feature_basis(self):
         """Incremental featurizer: ``.add(candidates)`` absorbs,
         ``.matrix()`` emits the constant-pruned
@@ -138,10 +165,20 @@ class DesignSpace:
     def apply_features(self, candidates: Sequence[Any],
                        features: list) -> np.ndarray:
         """Evaluate an explicit feature list on new candidates
-        (classify-the-full-space path)."""
+        (classify-the-full-space / surrogate-predict path)."""
         raise NotImplementedError
 
     # -- evaluation support ------------------------------------------------
+    def feature_universe(self):
+        """Names-only candidate-feature tracker for out-of-core
+        corpora: ``.add(candidates)`` absorbs (O(1) memory per
+        candidate), ``.candidate_features()`` lists the unpruned
+        feature list in the basis order, ``.merge(other)`` unions two
+        hosts' universes. Optional — only histogram sinks need it.
+        """
+        raise NotImplementedError(
+            f"design space {self.name!r} has no feature universe")
+
     def durations(self, machine) -> dict:
         """Per-op analytic duration table (empty when inapplicable)."""
         return {}

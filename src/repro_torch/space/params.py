@@ -27,9 +27,7 @@ KernelWallclockEvaluator`) builds a runnable from a candidate and what
 reference output gates its correctness. :func:`demo_param_space` is a
 dependency-free analytic grid for tests and smoke runs.
 
-The JAX package's ``repro/space/params.py``, with its imports rewritten;
-left out are ``decode_batch`` and the feature universe (only the
-out-of-core sinks need them).
+The JAX package's ``repro/space/params.py``, with its imports rewritten.
 """
 from __future__ import annotations
 
@@ -111,6 +109,28 @@ class _ParamBasis:
                              np.ascontiguousarray(X[:, keep]))
 
 
+class _ParamUniverse:
+    """Feature universe of a parameter grid (the ``feature_universe``
+    protocol): the candidate features are closed-form over the grid
+    (``all_features``), so absorbing candidates is a no-op and merging
+    two hosts' universes over the same grid is trivially exact."""
+
+    def __init__(self, space: "ParamSpace"):
+        self.space = space
+
+    def __len__(self) -> int:
+        return len(self.space.all_features())
+
+    def add(self, candidates: Sequence) -> "_ParamUniverse":
+        return self
+
+    def merge(self, other: "_ParamUniverse") -> "_ParamUniverse":
+        return self
+
+    def candidate_features(self) -> list[ParamFeature]:
+        return self.space.all_features()
+
+
 class ParamSpace(DesignSpace):
     """A finite grid of named parameter dimensions.
 
@@ -190,6 +210,21 @@ class ParamSpace(DesignSpace):
                                                  len(self.dims))
         return [row.tobytes() for row in enc], enc
 
+    def decode_batch(self, enc: np.ndarray) -> list[tuple]:
+        """Candidate tuples back from ``encode_batch`` index rows."""
+        enc = np.asarray(enc, dtype=np.int32).reshape(-1, len(self.dims))
+        out: list[tuple] = []
+        for row in enc:
+            cand = []
+            for (name, vs), i in zip(self.dims, row):
+                if not 0 <= i < len(vs):
+                    raise ValueError(
+                        f"index {int(i)} out of range for dimension "
+                        f"{name!r}")
+                cand.append(vs[int(i)])
+            out.append(tuple(cand))
+        return out
+
     def candidate_key(self, candidate: Sequence) -> tuple:
         return tuple(candidate)
 
@@ -248,6 +283,9 @@ class ParamSpace(DesignSpace):
 
     def feature_basis(self) -> _ParamBasis:
         return _ParamBasis(self)
+
+    def feature_universe(self) -> "_ParamUniverse":
+        return _ParamUniverse(self)
 
     def featurize(self, candidates: Sequence) -> FeatureMatrix:
         fm = self.feature_basis().add(candidates).matrix()

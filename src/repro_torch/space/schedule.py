@@ -6,8 +6,7 @@ relabeling, :func:`tie_key` its total order, :func:`eligible_items` the
 stream-bijection-pruned move
 set shared by MCTS expansion and rollouts, :func:`random_schedule`
 the uniform rollout policy, and :class:`ScheduleSpace` the protocol
-over them: the JAX package's ``repro/space/schedule.py`` (without
-``decode_batch``, ``mutate`` and the feature universe), so cache keys,
+over them: the JAX package's ``repro/space/schedule.py``, so cache keys,
 store addresses, features, trajectories and analytic costs are the
 reference's.
 """
@@ -22,7 +21,8 @@ from repro_torch.core.costmodel import op_durations, simulate
 from repro_torch.core.dag import BoundOp, Graph, OpKind, Schedule
 from repro_torch.core.enumerate import enumerate_schedules
 from repro_torch.core.features import (FeatureBasis, FeatureMatrix,
-                                       apply_features, featurize)
+                                       FeatureUniverse, apply_features,
+                                       featurize)
 from repro_torch.space.base import DesignSpace
 
 
@@ -164,6 +164,28 @@ class ScheduleSpace(DesignSpace):
                 -1)
         return [row.tobytes() for row in enc], enc
 
+    def decode_batch(self, enc: np.ndarray) -> list[Schedule]:
+        """Schedules back from ``encode_batch`` rows.
+
+        Accepts ``(B, 2, N)`` or per-row flattened ``(B, 2*N)`` int32
+        (the cache-key bytes reinterpreted). Streams come back exactly
+        as encoded — the canonical first-use labels — so the result is
+        each row's canonical representative schedule: identical cache
+        key, identical expanded sequence and feature vector (sync
+        insertion depends only on same-stream relations, never on
+        stream *ids*).
+        """
+        enc = np.asarray(enc, dtype=np.int32)
+        names = list(self._op_id)
+        n = len(names)
+        enc = enc.reshape(-1, 2, n)
+        out: list[Schedule] = []
+        for row in enc:
+            out.append(Schedule(tuple(
+                BoundOp(names[int(o)], None if s < 0 else int(s))
+                for o, s in zip(row[0], row[1]))))
+        return out
+
     def candidate_key(self, schedule: Schedule) -> tuple:
         return canonical_key(schedule)
 
@@ -201,6 +223,9 @@ class ScheduleSpace(DesignSpace):
         return apply_features(self.graph, list(schedules), features)
 
     # -- evaluation support ------------------------------------------------
+    def feature_universe(self) -> FeatureUniverse:
+        return FeatureUniverse(self.graph)
+
     def durations(self, machine) -> dict:
         return op_durations(self.graph, machine)
 

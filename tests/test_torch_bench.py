@@ -4,6 +4,7 @@ through the plain kernels: the gate runs before any window is timed,
 and the objective key names the protocol. On the card:
 tests/test_torch_cuda.py."""
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -48,19 +49,21 @@ def test_measure_cuda_counts_like_measure_on_the_cpu(min_samples):
 
 
 @pytest.mark.parametrize("measure", ["measure", "measure_cuda"])
-def test_window_is_elapsed_over_samples(measure):
-    """A 20 ms window of 1 ms calls: about 20 samples, each reported at
-    about its own length (the warm-up call is not in the window)."""
-    calls, _ = counter()
+def test_window_is_elapsed_over_samples(measure, monkeypatch):
+    """A 20 ms window of 1 ms calls on a clock that only the calls move:
+    exactly 20 samples in the window (the warm-up call is not in it),
+    each reported at its own length."""
+    ticks = [0]                          # whole milliseconds
 
     def fn():
-        calls.append(None)
-        time.sleep(0.001)
+        ticks[0] += 1
 
+    monkeypatch.setattr(bench, "time", SimpleNamespace(
+        perf_counter=lambda: ticks[0] / 1000))
     args = (fn,) if measure == "measure" else (fn, CPU)
     t = getattr(bench, measure)(*args, t_measure_s=0.02)
-    assert 0.001 <= t < 0.005
-    assert 5 <= len(calls) - 1 <= 21
+    assert ticks[0] - 1 == 20
+    assert t == pytest.approx(0.001)
 
 
 @pytest.fixture(scope="module")

@@ -246,6 +246,67 @@ def test_owned_events_survive_back_to_back_runs(small_spmv):
         assert torch.equal(out[k], v), k
 
 
+def _driver_on_card(spmv, dev, sinks, budget, sim_budget):
+    import repro_torch.core as C
+    from repro_torch import obs
+    from repro_torch.driver import SearchDriver
+    from repro_torch.engine import ExecutorEvaluator
+    from repro_torch.search import SurrogateGuided
+    g = C.spmv_dag()
+    ev = ExecutorEvaluator(g, impls=spmv.impls(), env=spmv.env(),
+                           reset=spmv.poison, repeats=5, warmup=2,
+                           device=dev, store_tag=spmv.store_tag)
+    strat = SurrogateGuided(g, 2, seed=0, warmup=16, surrogate="boost",
+                            surrogate_kwargs={"n_estimators": 20})
+    tel = obs.Telemetry()
+    with obs.use(tel):
+        res = SearchDriver(g, strat, ev, budget=budget, batch_size=4,
+                           sim_budget=sim_budget,
+                           acquisition="expected_improvement",
+                           sinks=sinks).run()
+    return ev, strat, tel, res
+
+
+def test_driver_over_measured_schedules(small_spmv, dev):
+    """The search driver at n = 4,096 on the card: a boosted surrogate
+    screened by expected improvement, every measured schedule gated,
+    the kernels launched, and the spans of every layer recorded."""
+    _, _, spmv = small_spmv
+    before = spmv_k.ell_spmv.launches, pack_k.pack.launches
+    ev, strat, tel, res = _driver_on_card(spmv, dev, ["telemetry"],
+                                          None, 40)
+    assert 40 <= res.cache_misses == ev.n_checked <= 43
+    assert spmv_k.ell_spmv.launches > before[0]
+    assert pack_k.pack.launches > before[1]
+    assert all(np.isfinite(t) and t > 0.0 for t in res.times)
+    spans = tel.spans_by_name()
+    assert {"driver.run", "driver.round", "driver.propose",
+            "driver.evaluate", "driver.observe", "engine.batch",
+            "engine.measure"} <= set(spans)
+    assert spans["driver.acquire"]["count"] > 0 and strat.n_screened > 0
+    assert spans["engine.measure"]["total_s"] <= \
+        spans["driver.evaluate"]["total_s"]
+    assert tel.counters()["sink.consumed"] == res.n_proposed
+
+
+def test_histogram_distill_equals_dense_on_measured_times(small_spmv, dev):
+    """The out-of-core distill of the measured corpus is the dense one:
+    the same features, tree, rules and error."""
+    from repro_torch.driver import DatasetSink, HistogramSink
+    import repro_torch.core as C
+    _, _, spmv = small_spmv
+    g = C.spmv_dag()
+    ds, hs = DatasetSink(g), HistogramSink(g, block_rows=50)
+    _, _, _, res = _driver_on_card(spmv, dev, [ds, hs], 120, None)
+    assert hs.times == ds.times == res.times
+    dense, ooc = ds.distill(), hs.distill()
+    assert hs.feature_list() == ds.matrix().features
+    assert dense.render() == ooc.render()
+    assert dense.training_error == ooc.training_error
+    assert [(r.class_label, r.rules, r.n_samples) for r in dense.rulesets] \
+        == [(r.class_label, r.rules, r.n_samples) for r in ooc.rulesets]
+
+
 # -- flash attention and the narrow-band SpMV -----------------------------------
 
 ATTN_CASES = [((2, 3, 256, 64), (2, 3, 256, 64), torch.float32, True),
