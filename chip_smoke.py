@@ -67,6 +67,26 @@ Phases, each printing one JSON line:
                second sweep (Spearman rho of the two), a warm replay from
                an EvalStore (zero measurements), and the spmv_mulsum and
                pack spaces swept exhaustively
+  serve        the dense LM serving path: qwen2.5-32b at full width with
+               24 of its 64 layers, float32 weights drawn on the card
+               from a seed, bfloat16 activations; Engine.generate on 4
+               prompts of 1,024 seeded tokens, 16 greedy new tokens, the
+               flash kernel counted (one launch per layer in prefill);
+               prefill ms and decode ms per token by CUDA events, tokens
+               per second, peak memory; the prefill's logits against the
+               plain attention route on the same weights (max |dlogit|
+               against max |logit|, and the share of greedy tokens that
+               agree: reported; non-finite logits fail); layer by layer
+               in bfloat16 and float32 activations, the two routes'
+               attention on the kernel route's q, k, v (within
+               SERVE_ATTN_TOL of max |o|, else a failure) and how far
+               the two routes' residual streams part; one
+               prefill and one decode step under torch.profiler (device
+               ms by kernel, idle share; traces in chiprun_out/); the
+               flash kernel alone at the prefill's shape in bfloat16
+               against its plain version and SDPA, which are the
+               ``kernels`` line's flash_attention numbers (the autotune
+               shape's under ``at_autotune_shape``)
 
 Then the card's ``name, power.limit``, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -96,6 +116,24 @@ PAPER_N, PAPER_NNZ, RANKS = 150_000, 1_500_000, 4
 ATTN = {"batch": 1, "heads": 40, "seq": 4096, "head_dim": 128}
 ONEHOT_HB, ONEHOT_BLOCK_R = 512, 256
 SLEEP_CYCLES = 50_000_000      # ~25 ms of device sleep (queues launches, delays a producer)
+# The serve phase: qwen2.5-32b at full width, depth cut from 64 layers
+# (53.1 GB of float32 weights; all 64 would need 131 GB), batch 4 x
+# 1,024 prompt tokens, 16 greedy new tokens.
+SERVE = {"arch": "qwen2.5-32b", "n_layers": 24, "batch": 4, "prompt": 1024,
+         "new": 16, "seed": 0}
+# Kernel vs plain attention route on the serve path's own q, k, v, layer
+# by layer (each layer's input taken from the kernel route), as a share of
+# max |o|. Random weights under the reference's init make scores of
+# std ~300 at this width, so attention is near one-hot and a score
+# error of 1e-6 (float32 accuracy, what 3xTF32 keeps) moves o by ~1e-4
+# of its range in float32; bf16 outputs round that to one ulp, 2^-8.
+# The tolerances allow 2.5 ulps (bf16) and 8x float32's reading. The
+# end-to-end logits of the two routes are reported, not gated: at this
+# init the model is chaotic, and two float32-accurate routes part by
+# layer ~10 (route_divergence).
+SERVE_ATTN_TOL = {"bfloat16": 1e-2, "float32": 2e-3}
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+
 
 
 def emit(phase: str, **fields) -> None:
@@ -144,19 +182,67 @@ def bound_ms(n_bytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_kernel(fn) -> str:
-    """Name of the longest device kernel one call of ``fn`` launches,
-    from a ``torch.profiler`` trace."""
-    from torch.profiler import ProfilerActivity, profile
+def traced_kernels(parts: dict, path: str) -> dict:
+    """Each of ``parts`` (name -> fn) called in turn under one
+    torch.profiler session (CPU and CUDA), inside a ``record_function``
+    span that starts and ends with a sync; the Chrome trace is written to
+    ``path``. Per part: device ms per kernel name (the trace's kernel
+    events inside the part's span on the device's timeline, its
+    ``gpu_user_annotation``: the host's span is milliseconds off that
+    clock), largest first, and the span's wall ms by the host clock. One
+    session serves a phase: on the card's machine a fourth session in
+    one process has recorded no kernels."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in p.key_averages()
-               if e.device_time_total > 0 and "Activity Buffer" not in e.key]
-    if not kernels:
-        raise AssertionError("torch.profiler saw no device kernel")
-    return max(kernels, key=lambda e: e.device_time_total).key
+    walls = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for name, fn in parts.items():
+            with record_function(f"part.{name}"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[name] = (time.perf_counter() - t0) * 1e3
+    p.export_chrome_trace(path)
+    with open(path) as f:
+        by_part = kernels_by_part(json.load(f)["traceEvents"], list(parts))
+    return {name: (ks, walls[name]) for name, ks in by_part.items()}
+
+
+def kernels_by_part(events: list, names: list) -> dict:
+    """Device ms per kernel name, largest first, for each ``part.<name>``
+    span of a Chrome trace's device timeline."""
+    spans = {e["name"][len("part."):]: (e["ts"], e["ts"] + e["dur"])
+             for e in events if e.get("cat") == "gpu_user_annotation" and
+             e.get("name", "").startswith("part.")}
+    out = {}
+    for name in names:
+        if name not in spans:
+            raise AssertionError(f"torch.profiler saw no device work in "
+                                 f"{name}")
+        lo, hi = spans[name]
+        by_name: dict = {}
+        for e in events:
+            if e.get("cat") == "kernel" and lo <= e["ts"] <= hi:
+                by_name[e["name"]] = by_name.get(e["name"], 0.0) + \
+                    e["dur"] / 1e3
+        if not by_name:
+            raise AssertionError(f"torch.profiler saw no device kernel "
+                                 f"in {name}")
+        out[name] = dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+    return out
+
+
+def device_kernel(fn) -> str:
+    """Name of the longest device kernel three calls of ``fn`` launch,
+    from a ``torch.profiler`` trace."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ks, _ = traced_kernels({"fn": lambda: [fn() for _ in range(3)]},
+                               os.path.join(tmp, "trace.json"))["fn"]
+    return next(iter(ks))
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -667,6 +753,238 @@ def phase_autotune(dev) -> dict:
     return out
 
 
+def kernel_summary(ks: dict, wall: float) -> dict:
+    """A part of a profile: wall ms, device ms summed over kernels, the
+    idle share, the flash kernel's ms, matrix products (kernels named
+    nvjet, gemm, xmma or cutlass: cuBLAS's) and the rest, and the six
+    largest kernels by name."""
+    busy = sum(ks.values())
+    flash = sum(t for k, t in ks.items() if "flash_fwd_kernel" in k)
+    gemm = sum(t for k, t in ks.items() if any(
+        w in k.lower() for w in ("gemm", "xmma", "cutlass", "nvjet")))
+    return {"wall_ms": wall, "device_ms": busy,
+            "idle_share": max(0.0, 1 - busy / wall), "flash_ms": flash,
+            "gemm_ms": gemm, "other_ms": busy - flash - gemm,
+            "top": {k: t for k, t in list(ks.items())[:6]}}
+
+
+def route_divergence(model, tokens, dtype: str) -> dict:
+    """The kernel and the plain attention route through the model's
+    layers in ``dtype`` activations. At each layer, both routes' attention
+    on the kernel route's q, k, v (max |o_kernel - o_plain| / max
+    |o_plain|: the kernel's error on this layer's inputs), and the two
+    routes run free from the same embedding (max and mean |x_kernel -
+    x_plain| / the plain route's: how far an error travels). The kernel
+    launches here are outside the path's count."""
+    import dataclasses
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models.blocks import block_forward
+    from repro_torch.models.layers import embed_tokens, rmsnorm, rope
+
+    cfg = dataclasses.replace(model.cfg, dtype=dtype)
+    dt = getattr(torch, dtype)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    out: dict = {"attn_rel": [], "resid_rel_max": [], "resid_rel_mean": []}
+    with torch.inference_mode():
+        xk = xp = embed_tokens(model.embed, tokens, dt)
+        for p, desc in zip(model.decoder, model.descs):
+            h = rmsnorm(xk, p["norm_mix"], cfg.rms_eps)
+            q, k, v = attn.project_qkv(p["mixer"], h, h, cfg)
+            q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+            k, v = attn.repeat_kv(cfg, k), attn.repeat_kv(cfg, v)
+            ok = attn.self_attention(q, k, v, cfg, None, causal=True)
+            op = attn.self_attention(q, k, v, cfg, None, causal=True,
+                                     attention="plain")
+            out["attn_rel"].append(rel_err(ok, op)[1])
+            del h, q, k, v, ok, op
+            xk, _ = block_forward(p, xk, cfg, desc, None)
+            xp, _ = block_forward(p, xp, cfg, desc, None, attention="plain")
+            d = (xk.float() - xp.float()).abs()
+            out["resid_rel_max"].append(
+                float(d.max() / xp.float().abs().max()))
+            out["resid_rel_mean"].append(
+                float(d.mean() / xp.float().abs().mean()))
+    out["attn_rel_max"] = max(out["attn_rel"])
+    return out
+
+
+def phase_serve(dev) -> dict:
+    """The dense serving path at qwen2.5-32b's full width (depth cut to
+    SERVE["n_layers"]): weights drawn on the card, Engine.generate on
+    batch x prompt tokens, the flash kernel counted; prefill and decode
+    timed; the prefill's logits against the plain attention route on the
+    same weights; the flash kernel alone at the prefill's shape against
+    its plain version and SDPA; one prefill and one decode step
+    profiled."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention.ops import attention_plain
+    from repro_torch.models.model import LM
+    from repro_torch.serve.engine import Engine, make_serve_step
+
+    full = get_config(SERVE["arch"])
+    cfg = dataclasses.replace(full, n_layers=SERVE["n_layers"])
+    b, s, new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev, seed=SERVE["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.from_numpy(np.random.default_rng(SERVE["seed"] + 1)
+                               .integers(0, cfg.vocab, (b, s))).to(dev)
+    t_max = s + new
+    engine = Engine(model, t_max=t_max)
+    engine.generate(prompts[:, :128], 2)            # warm-up (cuBLAS)
+
+    # The path: one generate, the kernel counted from 0.
+    fa_k.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompts, new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = fa_k.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.n_layers:
+        raise AssertionError(f"serve: {launches} flash launches in one "
+                             f"prefill of {cfg.n_layers} layers")
+
+    # Prefill and decode by CUDA events.
+    def prefill():
+        return model.prefill(prompts, t_max)
+
+    prefill_ms = time_cuda(prefill, iters=3, cold=False)
+    logits, caches = prefill()
+    step = make_serve_step(model)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    step_ms = []
+    with torch.inference_mode():
+        for i in range(new - 1):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+            e0.record()
+            tok, _, caches = step(caches, tok, s + i)
+            e1.record()
+            torch.cuda.synchronize()
+            step_ms.append(e0.elapsed_time(e1))
+    decode_ms = statistics.median(step_ms)
+
+    # The plain attention route on the same weights: the prefill's
+    # logits and the greedy continuation from its caches.
+    n0 = fa_k.flash_attention.launches
+    p_logits, p_caches = model.prefill(prompts, t_max, attention="plain")
+    if fa_k.flash_attention.launches != n0:
+        raise AssertionError("the plain route launched the kernel")
+    ptok = [p_logits[:, -1].argmax(-1)[:, None]]
+    for i in range(new - 1):
+        t_next, _, p_caches = step(p_caches, ptok[-1], s + i)
+        ptok.append(t_next)
+    ptok = torch.cat(ptok, dim=1)
+    finite = bool(torch.isfinite(logits).all()) and \
+        bool(torch.isfinite(p_logits).all())
+    err, rel = rel_err(logits, p_logits)
+    agree = float((ptok == tokens).float().mean())
+    peak_plain = torch.cuda.max_memory_allocated()
+    del p_caches, p_logits
+
+    diverge = {name: route_divergence(model, prompts, name)
+               for name in SERVE_ATTN_TOL}
+
+    # The flash kernel alone at the prefill's shape, bfloat16.
+    h, d = cfg.n_heads, cfg.head_dim
+    q, k, v = (t.to(torch.bfloat16) for t in attention_inputs(
+        dev, b, h, s, d, seed=3))
+    qf, kf, vf = (t.reshape(b * h, s, d) for t in (q, k, v))
+    out = torch.empty_like(qf)
+    scale = d ** -0.5
+
+    def kernel():
+        return fa_k.flash_attention(qf, kf, vf, out, causal=True,
+                                    block_q=128, block_k=128, scale=scale)
+
+    def plain():
+        return attention_plain(qf, kf, vf, causal=True, scale=scale)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    got = kernel().clone()
+    ref = plain()
+    k_err, k_rel = rel_err(got, ref)
+    if not k_err <= 3e-2:
+        raise AssertionError(f"flash_attention bf16: max abs err {k_err}")
+    pairs = b * h * s * (s + 1) / 2
+    flops = 4.0 * pairs * d
+    n_bytes = 4 * q.numel() * q.element_size()
+    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+    flash = {
+        "op": "flash_attention", "shape": [b, h, s, d],
+        "dtype": "bfloat16", "causal": True, "block_q": 128,
+        "block_k": 128, "flops": flops, "bytes": n_bytes,
+        "max_abs_err": k_err, "rel_err": k_rel,
+        "ms": time_cuda(kernel, iters=20),
+        "plain_ms": time_cuda(plain, iters=5),
+        "library_ms": time_cuda(sdpa, iters=20),
+        "library_kernel": None,              # from the profile below
+        "library_max_abs_err": float(
+            (sdpa().reshape(b * h, s, d).float() - ref.float()).abs().max()),
+        "bound_ms": bnd, "bound_by": by,
+        # The kernel's own route: bf16 K and V are exact in TF32, so each
+        # product takes two TF32 MMAs (q's big and small parts).
+        "bound_ms_2xtf32": bound_ms(n_bytes, 2 * flops,
+                                    TF32_FLOPS_PER_S)[0]}
+
+    # Where the time goes: one prefill and one decode step profiled, and
+    # SDPA's kernel named, in one profiler session.
+    trace = os.path.join(ROOT, "chiprun_out", "serve_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    parts = traced_kernels(
+        {"prefill": prefill,
+         "decode_step": lambda: step(caches, tok, s + new - 2),
+         "sdpa": lambda: [sdpa() for _ in range(3)]}, trace)
+    flash["library_kernel"] = next(iter(parts.pop("sdpa")[0]))
+    prof = {k: kernel_summary(*v) for k, v in parts.items()}
+    prof["trace"] = os.path.relpath(trace, ROOT)
+    del caches
+    # The profiler slows the host: the idle share of an unprofiled decode
+    # step is its device ms over the steps' median by CUDA events.
+    prof["decode_step"]["idle_share_events"] = max(
+        0.0, 1 - prof["decode_step"]["device_ms"] / decode_ms)
+
+    res = {
+        "arch": SERVE["arch"], "config": dataclasses.asdict(cfg),
+        "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+        "params": model.n_params(), "param_dtype": cfg.param_dtype,
+        "dtype": cfg.dtype, "batch": b, "prompt_tokens": s,
+        "new_tokens": new, "init_s": init_s, "generate_s": gen_s,
+        "tokens_per_s": b * new / gen_s,
+        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+        "decode_tokens_per_s": b / decode_ms * 1e3,
+        "decode_ms_all": step_ms,
+        "max_memory_allocated": peak,
+        "max_memory_allocated_with_plain": peak_plain,
+        "launches": {"flash_attention": launches},
+        "max_abs_logit": float(logits.float().abs().max()),
+        "max_abs_dlogit_vs_plain": err, "rel_dlogit_vs_plain": rel,
+        "token_agreement": agree, "finite": finite,
+        "route_divergence": diverge, "profile": prof,
+        "flash_attention": flash}
+    if not finite:
+        raise AssertionError("serve: non-finite logits")
+    for name, d in diverge.items():
+        if not d["attn_rel_max"] <= SERVE_ATTN_TOL[name]:
+            raise AssertionError(
+                f"serve: {name} kernel-vs-plain attention differs by "
+                f"{d['attn_rel_max']} of max |o| > {SERVE_ATTN_TOL[name]}")
+    if tokens.shape != (b, new):
+        raise AssertionError(f"serve: tokens of shape {tuple(tokens.shape)}")
+    return res
+
 def phase_race(spmv, dev) -> dict:
     """Both checks must be caught by the value gate, and pass intact."""
     from repro_torch.core.dag import (BoundOp, Graph, Op, OpKind, Schedule,
@@ -1057,13 +1375,16 @@ def main() -> int:
     emit("onehot_path", **onehot_path)
     autotune = phase_autotune(dev)
     emit("autotune", **autotune)
+    serve = phase_serve(dev)
+    emit("serve", **serve)
     launches = {**main_path["launches"], **onehot_path["launches"],
-                **autotune["launches"]}
+                **serve["launches"]}
 
     by_path = {"main_path": main_path["launches"],
                "driver": driver["launches"],
                "onehot_path": onehot_path["launches"],
-               "autotune": autotune["launches"]}
+               "autotune": autotune["launches"],
+               "serve": serve["launches"]}
 
     def entry(name, source, replaces, calls, path, summed=(), **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -1080,7 +1401,8 @@ def main() -> int:
 
     timed = ("ms_warm", "floor_ms")
 
-    fa = kern["flash_attention"][0]
+    fa = serve["flash_attention"]
+    fa_auto = kern["flash_attention"][0]
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [
@@ -1094,10 +1416,15 @@ def main() -> int:
               "main_path", summed=timed),
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:80",
-              kern["flash_attention"], "autotune",
-              bound_ms_f32_cores=fa["bound_ms_f32_cores"],
+              [fa], "serve",
+              shape=fa["shape"], dtype=fa["dtype"],
+              bound_ms_2xtf32=fa["bound_ms_2xtf32"],
               library_kernel=fa["library_kernel"],
               library_max_abs_err=fa["library_max_abs_err"],
+              at_autotune_shape={k: fa_auto[k] for k in (
+                  "shape", "dtype", "ms", "plain_ms", "library_ms",
+                  "library_kernel", "bound_ms", "bound_by",
+                  "bound_ms_f32_cores", "max_abs_err")},
               autotune_best=autotune["best"],
               autotune_best_ms=autotune["best_ms"]),
         entry("ell_onehot", "src/repro_torch/csrc/ell_onehot.cu",

@@ -51,9 +51,10 @@ def padded_head_dim(d: int) -> int:
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True, block_q: int = 128,
-        block_k: int = 128) -> torch.Tensor:
+        causal: bool = True, block_q: int = 128, block_k: int = 128,
+        scale: float | None = None) -> torch.Tensor:
     """Multi-head attention. q: (B, H, Sq, D); k, v: (B, H, Skv, D).
+    ``scale`` multiplies q . k (default ``D ** -0.5``, the true D).
 
     Raises ``ValueError`` for non-causal shapes that are not block
     aligned and for causal shapes whose q and kv padding differ (the
@@ -71,6 +72,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("mha: causal padding requires pq == pk (use "
                          "equal blocks, sq == skv)")
     dp = padded_head_dim(d)
+    if scale is None:
+        scale = d ** -0.5
     q = F.pad(q, (0, dp - d, 0, pq))
     k = F.pad(k, (0, dp - d, 0, pk))
     v = F.pad(v, (0, dp - d, 0, pk))
@@ -78,10 +81,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.reshape(b * h, skv + pk, dp)
     vf = v.reshape(b * h, skv + pk, dp)
     if q.device.type == "cpu":
-        out = attention_plain(qf, kf, vf, causal=causal, scale=d ** -0.5)
+        out = attention_plain(qf, kf, vf, causal=causal, scale=scale)
     else:
         out = _k.flash_attention(
             qf.contiguous(), kf.contiguous(), vf.contiguous(),
             torch.empty_like(qf), causal=causal, block_q=block_q,
-            block_k=block_k, scale=d ** -0.5)
+            block_k=block_k, scale=scale)
     return out.reshape(b, h, sq + pq, dp)[:, :, :sq, :d]

@@ -1,0 +1,102 @@
+"""Shared neural layers: norms, MLP variants, rotary embeddings.
+
+Plain functions on tensors, as in the reference (``repro/models/
+layers.py``); ``p`` is a dict of tensors or a :class:`~.params.Params`.
+The reference's ``constrain`` calls place activations on a mesh and are
+no-ops without one; the port has no mesh yet and leaves them out.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import Spec
+
+
+# -- norms -------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """float32 inside, cast back, then ``* scale`` in x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    rms = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * rms).to(dt) * scale.to(dt)
+
+
+def norm_spec(d: int) -> Spec:
+    return Spec((d,), ("d_model",), init="ones")
+
+
+# -- rotary position embeddings ----------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S). Halves
+    split (not interleaved); angles in float32."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].float() * freq         # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- MLP variants --------------------------------------------------------------
+
+def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp in ("swiglu", "geglu"):
+        return {
+            "wi": Spec((d, f), ("d_model", "d_ff")),
+            "wg": Spec((d, f), ("d_model", "d_ff")),
+            "wo": Spec((f, d), ("d_ff", "d_model")),
+        }
+    return {
+        "wi": Spec((d, f), ("d_model", "d_ff")),
+        "wo": Spec((f, d), ("d_ff", "d_model")),
+    }
+
+
+def mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The reference casts each weight to x's dtype at every call."""
+    h = x @ p["wi"].to(x.dtype)
+    if kind == "swiglu":
+        h = F.silu(x @ p["wg"].to(x.dtype)) * h
+    elif kind == "geglu":
+        h = F.gelu(x @ p["wg"].to(x.dtype), approximate="tanh") * h
+    elif kind == "relu2":               # squared ReLU (Primer / nemotron)
+        h = torch.square(F.relu(h))
+    elif kind == "gelu":
+        h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+    else:
+        raise ValueError(f"unknown mlp kind {kind!r}")
+    return h @ p["wo"].to(x.dtype)
+
+
+# -- embeddings ----------------------------------------------------------------
+
+def embed_specs(cfg: ModelConfig) -> dict:
+    d, v = cfg.d_model, cfg.vocab
+    out = {"tokens": Spec((v, d), ("vocab", "d_model"), scale=1.0)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = Spec((d, v), ("d_model", "vocab"))
+    if cfg.frontend is not None:
+        out["frontend_proj"] = Spec(
+            (cfg.frontend.d_frontend, d), ("d_frontend", "d_model"))
+    return out
+
+
+def embed_tokens(p, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Gather the rows, then cast: the reference casts the whole table
+    first (the same values; at qwen2.5-32b a 1.57 GB copy per call)."""
+    return p["tokens"][tokens].to(dtype)
+
+
+def logits_out(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ p["tokens"].to(x.dtype).T
+    return x @ p["lm_head"].to(x.dtype)

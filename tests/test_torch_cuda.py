@@ -485,3 +485,58 @@ def test_a_refused_launch_raises(dev):
     assert err != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
         build.check(err, "flash_attention")
+
+
+# -- the dense serving path ------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 3e-2)])
+def test_lm_prefill_kernel_route_matches_plain(dev, dtype, tol):
+    """The reduced qwen config on the card: prefill through the flash
+    kernel (one launch per layer) against the plain streaming route on
+    the same weights; the logits within tol x max |plain logit|, the
+    decode steps within the same of the kernel route's forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.models.model import LM
+    cfg = dataclasses.replace(get_reduced("qwen2.5-32b"), dtype=dtype)
+    m = LM(cfg, device=dev, seed=0)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 100))).to(dev)
+    before = fa_k.flash_attention.launches
+    flash, caches = m.prefill(tok[:, :97], 104)
+    torch.cuda.synchronize()
+    assert fa_k.flash_attention.launches == before + cfg.n_layers
+    plain, _ = m.prefill(tok[:, :97], 104, attention="plain")
+    assert fa_k.flash_attention.launches == before + cfg.n_layers
+    assert bool(torch.isfinite(flash).all())
+    scale = float(plain.float().abs().max())
+    assert float((flash.float() - plain.float()).abs().max()) <= tol * scale
+    with torch.inference_mode():
+        fwd = m(tok)
+    for i in range(97, 100):
+        step, caches = m.decode_step(tok[:, i:i + 1], i, caches)
+        err = float((step[:, 0].float() - fwd[:, i].float()).abs().max())
+        assert err <= tol * float(fwd[:, i].float().abs().max())
+
+
+def test_generate_on_card_gives_the_cpu_tokens(dev):
+    """Greedy tokens of the reduced granite config in float32 on the card
+    equal those of the same weights on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.model import LM
+    from repro_torch.serve.engine import Engine
+    cfg = dataclasses.replace(get_reduced("granite-3-8b"), dtype="float32")
+    on_card = LM(cfg, device=dev, seed=2)
+    on_cpu = LM(cfg, device="cpu", seed=3)
+    on_cpu.load_state_dict({k: v.cpu()
+                            for k, v in on_card.state_dict().items()})
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab, (3, 40))
+    got = Engine(on_card, t_max=56).generate(
+        torch.from_numpy(prompts).to(dev), 12)
+    want = Engine(on_cpu, t_max=56).generate(torch.from_numpy(prompts), 12)
+    assert torch.equal(got.cpu(), want)

@@ -34,7 +34,9 @@ def test_the_walk_sees_the_whole_port():
     for must in ("src/repro_torch/obs/telemetry.py",
                  "src/repro_torch/driver/driver.py",
                  "src/repro_torch/search/surrogate.py",
-                 "src/repro_torch/rules/boost.py", "chip_smoke.py"):
+                 "src/repro_torch/rules/boost.py",
+                 "src/repro_torch/models/model.py",
+                 "src/repro_torch/serve/engine.py", "chip_smoke.py"):
         assert must in names
 
 
