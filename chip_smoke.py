@@ -56,6 +56,21 @@ Phases, each printing one JSON line:
                seconds per span beside the phase's wall, and the path of
                the Perfetto trace it writes (chiprun_out/driver_trace.json);
                then a warm replay from a store, which must measure nothing
+  rpc          the evaluation service on the card's host: two
+               ``python -m repro_torch.engine.server --space halo3d
+               --backend vectorized`` processes; a cold rpc search
+               (sim_budget 60) bit for bit equal to local sim with no
+               local evaluation, the same search with one server killed
+               mid-search (identical again; its local evaluations and
+               retries), an in-process server of another space refusing
+               with ``n_refused == 1`` read at once, the servers' pids
+               (from their WELCOME) absent from nvidia-smi's compute apps
+               and holding no /dev/nvidia* file, and ``rpc_stats``
+  stepdag      qwen2.5-32b's train step at 4 coarse stages as an op-DAG
+               on the H100 data sheet's constants (``launch/costs.py``),
+               MCTS through an in-process two-host fleet held equal to
+               local sim; best and worst makespans (analytic model, not a
+               measurement) and the first rules
   onehot_path  ell_matvec_onehot, the narrow-band SpMV's entry point, once
                at the paper's n and nnz on a band of half-width 512 (the
                kernel is on no path of the JAX package), with its launch
@@ -133,6 +148,8 @@ SERVE = {"arch": "qwen2.5-32b", "n_layers": 24, "batch": 4, "prompt": 1024,
 # layer ~10 (route_divergence).
 SERVE_ATTN_TOL = {"bfloat16": 1e-2, "float32": 2e-3}
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+# Every rpc socket wait is bounded, so no phase can hang on a server.
+RPC_TIMEOUTS = {"deadline": 10.0, "connect_timeout": 5.0}
 
 
 
@@ -1260,6 +1277,242 @@ def phase_driver(spmv, dev) -> dict:
                         "same_times": warm.times == res.times}}
 
 
+class _KillAfter:
+    """Wraps a search strategy; runs ``kill`` before its ``after``-th
+    proposal: a host dies mid-search, at a fixed point of the run."""
+
+    def __init__(self, inner, kill, after):
+        self.inner, self.kill, self.after, self.calls = inner, kill, after, 0
+
+    def propose(self, budget):
+        self.calls += 1
+        if self.calls == self.after:
+            self.kill()
+        return self.inner.propose(budget)
+
+    def observe(self, schedule, time):
+        self.inner.observe(schedule, time)
+
+
+def welcome_info(addr: str, fingerprint: bytes) -> dict:
+    """The WELCOME info a server sends a client whose fingerprint it
+    accepts (its space, backend and pid)."""
+    import socket
+
+    from repro_torch.engine import rpc
+
+    host, port = rpc.parse_host(addr)
+    with socket.create_connection((host, port), timeout=RPC_TIMEOUTS[
+            "connect_timeout"]) as sock:
+        sock.settimeout(RPC_TIMEOUTS["deadline"])
+        rpc.send_frame(sock, rpc.encode_hello(fingerprint))
+        mtype, body = rpc.recv_frame(sock)
+    if mtype != rpc.MSG_WELCOME:
+        raise AssertionError(f"{addr} answered {mtype}, not WELCOME")
+    return json.loads(body)
+
+
+def cuda_device_files(pid: int) -> list:
+    """The /dev/nvidia* files a process holds open: a CUDA context holds
+    some, a process that only imported torch holds none."""
+    fd_dir = f"/proc/{pid}/fd"
+    out = set()
+    for fd in os.listdir(fd_dir):
+        try:
+            target = os.readlink(os.path.join(fd_dir, fd))
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.add(target)
+    return sorted(out)
+
+
+def compute_app_pids() -> list:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return [int(p) for p in out.stdout.split() if p.strip().isdigit()]
+
+
+def phase_rpc() -> dict:
+    """The evaluation service: two server processes on halo3d under
+    ``vectorized``, a cold rpc search held to local sim, a server killed
+    mid-search, a refusal counted at once, and no server on the card."""
+    import random
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core.dag import halo3d_dag, spmv_dag_fine
+    from repro_torch.engine import (EvalServer, RpcHandshakeError,
+                                    make_evaluator, spawn_server_process)
+    from repro_torch.search import MCTSSearch, run_search
+    from repro_torch.space import random_schedule
+
+    t_phase = time.perf_counter()
+    g = halo3d_dag()
+    run = dict(budget=None, sim_budget=60, batch_size=8)
+
+    def spawn(_):
+        return spawn_server_process("halo3d", backend="vectorized",
+                                    startup_timeout=120.0)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        procs = list(pool.map(spawn, range(2)))
+    startup_s = time.perf_counter() - t0
+    try:
+        hosts = [p.addr for p in procs]
+        t0 = time.perf_counter()
+        ref = run_search(g, MCTSSearch(g, 2, seed=5), backend="sim", **run)
+        sim_s = time.perf_counter() - t0
+
+        ev = make_evaluator(g, "rpc", hosts=hosts, min_shard=1,
+                            **RPC_TIMEOUTS)
+        info = [welcome_info(a, ev.store_fingerprint) for a in hosts]
+        pids = [i["pid"] for i in info]
+        if pids != [p.proc.pid for p in procs]:
+            raise AssertionError(f"WELCOME pids {pids} are not the "
+                                 f"servers' {[p.proc.pid for p in procs]}")
+        on_card = compute_app_pids()
+        files = {pid: cuda_device_files(pid) for pid in pids}
+        own_files = cuda_device_files(os.getpid())
+        t0 = time.perf_counter()
+        res = run_search(g, MCTSSearch(g, 2, seed=5), ev, **run)
+        rpc_s = time.perf_counter() - t0
+        healthy = ev.rpc_stats()
+        ev.close()
+        identical = res.times_array().tobytes() == \
+            ref.times_array().tobytes()
+        if not identical or healthy["local_evals"] != 0:
+            raise AssertionError(f"rpc search differs from sim "
+                                 f"({identical}) or fell back locally "
+                                 f"({healthy['local_evals']} rows)")
+        if any(pid in on_card or files[pid] for pid in pids):
+            raise AssertionError(f"a server holds a CUDA context: "
+                                 f"nvidia-smi {on_card}, files {files}")
+        if not own_files:
+            raise AssertionError("this process holds no /dev/nvidia* "
+                                 "file: the context check sees nothing")
+
+        ev = make_evaluator(g, "rpc", hosts=hosts, min_shard=1, retries=1,
+                            backoff=0.01, **RPC_TIMEOUTS)
+        t0 = time.perf_counter()
+        killed = run_search(
+            g, _KillAfter(MCTSSearch(g, 2, seed=5), procs[0].terminate, 3),
+            ev, **run)
+        killed_s = time.perf_counter() - t0
+        after_kill = ev.rpc_stats()
+        ev.close()
+    finally:
+        for p in procs:
+            p.terminate()
+    survived = killed.times_array().tobytes() == ref.times_array().tobytes()
+    dead = after_kill["hosts"][hosts[0]]["alive"]
+    if not survived or dead:
+        raise AssertionError(f"after the kill: identical {survived}, "
+                             f"killed host alive {dead}")
+
+    other = EvalServer(spmv_dag_fine()).start()
+    try:
+        rng = random.Random(11)
+        scheds = [random_schedule(g, 2, rng) for _ in range(8)]
+        with make_evaluator(g, "rpc", hosts=[other.addr], min_shard=1,
+                            **RPC_TIMEOUTS) as ev:
+            try:
+                ev.evaluate(scheds)
+                refused = False
+            except RpcHandshakeError:
+                refused = True
+            n_refused = other.n_refused      # read at once, no wait
+    finally:
+        other.close()
+    if not (refused and n_refused == 1):
+        raise AssertionError(f"refused {refused}, n_refused {n_refused}")
+
+    def meters(stats):
+        return {"local_evals": stats["local_evals"],
+                "hosts": list(stats["hosts"].values())}
+
+    return {
+        "space": "halo3d", "server_backend": "vectorized",
+        "sim_budget": run["sim_budget"], "schedules": len(res.schedules),
+        "bit_identical_to_sim": identical,
+        "local_evals": healthy["local_evals"],
+        "kill_survived": survived,
+        "kill_local_evals": after_kill["local_evals"],
+        "kill_retries": sum(h["retries"] for h in
+                            after_kill["hosts"].values()),
+        "refused": refused, "n_refused": n_refused,
+        "server_pids": pids, "welcome": info,
+        "compute_app_pids": on_card,
+        "server_cuda_files": {str(k): v for k, v in files.items()},
+        "own_cuda_files": own_files,
+        "servers_hold_cuda_context": False,
+        "rpc_stats": meters(healthy),
+        "rpc_stats_after_kill": meters(after_kill),
+        "startup_s": startup_s, "sim_search_s": sim_s,
+        "rpc_search_s": rpc_s, "killed_search_s": killed_s,
+        "wall_s": time.perf_counter() - t_phase}
+
+
+def phase_stepdag() -> dict:
+    """The LM train step of qwen2.5-32b (4 coarse stages) as an op-DAG
+    on the H100 data sheet's constants, searched through an in-process
+    two-host fleet and held to local sim. Analytic: no time here is a
+    measurement."""
+    import dataclasses
+
+    from repro_torch.core.stepdag import train_step_dag, with_comm_durations
+    from repro_torch.engine import EvalServer
+    from repro_torch.launch.costs import (LINK_BW, PEAK_FLOPS,
+                                          costs_from_arch,
+                                          train_step_machine)
+    from repro_torch.rules import distill, render_rules_table
+    from repro_torch.search import MCTSSearch, run_search
+
+    t_phase = time.perf_counter()
+    arch, layers = "qwen2.5-32b", 4
+    m = train_step_machine()
+    costs = costs_from_arch(arch, layers, tokens_per_chip=16 * 4096 // 16)
+    g = with_comm_durations(train_step_dag(layers, costs), LINK_BW)
+    run = dict(budget=300, batch_size=8, machine=m)
+    t0 = time.perf_counter()
+    ref = run_search(g, MCTSSearch(g, 2, seed=0), backend="sim", **run)
+    sim_s = time.perf_counter() - t0
+    servers = [EvalServer(g, machine=m).start() for _ in range(2)]
+    try:
+        t0 = time.perf_counter()
+        res = run_search(g, MCTSSearch(g, 2, seed=0), backend="rpc",
+                         backend_kwargs={"hosts": [s.addr for s in servers],
+                                         "min_shard": 1, **RPC_TIMEOUTS},
+                         **run)
+        rpc_s = time.perf_counter() - t0
+    finally:
+        for s in servers:
+            s.close()
+    identical = res.times == ref.times
+    if not identical:
+        raise AssertionError("the fleet's train-step search differs "
+                             "from local sim")
+    times = res.times_array()
+    report = distill(res)
+    rules = render_rules_table(report.grouped(), top_k=1).splitlines()
+    total_flops = sum(op.flops for op in g.ops.values())
+    return {
+        "arch": arch, "layers": layers, "ops": g.n_vertices(),
+        "machine": dataclasses.asdict(m),
+        "costs": dataclasses.asdict(costs),
+        "proposals": res.n_proposed, "schedules": len(res.schedules),
+        "fleet_equals_sim": identical,
+        "units": "analytic model, not a measurement",
+        "best_ms": float(times.min()) * 1e3,
+        "worst_ms": float(times.max()) * 1e3,
+        "compute_only_bound_ms": total_flops / PEAK_FLOPS * 1e3,
+        "classes": report.labeling.n_classes, "rules": rules[:8],
+        "sim_search_s": sim_s, "rpc_search_s": rpc_s,
+        "wall_s": time.perf_counter() - t_phase}
+
+
 def phase_model(res, card_wall_s: float) -> dict:
     """The H100 machine model on the main path's schedules, against the
     times the card measured for them."""
@@ -1369,6 +1622,8 @@ def main() -> int:
     emit("model", **phase_model(res, main_path["search_wall_s"]))
     driver = phase_driver(spmv, dev)
     emit("driver", **driver)
+    emit("rpc", **phase_rpc())
+    emit("stepdag", **phase_stepdag())
     del spmv
     torch.cuda.empty_cache()
     onehot_path = phase_onehot_path(dev)

@@ -1,5 +1,6 @@
 """Program model, sync insertion, enumeration, features, the analytic
-machine model, the measurement protocol and the executor."""
+machine model, the measurement protocol, the executor and the train-step
+op-DAG."""
 from repro_torch.core.dag import (BoundOp, CommRole, Graph, Op, OpKind,
                                   Schedule, canonicalize_streams,
                                   halo3d_dag, spmv_dag, spmv_dag_fine,
@@ -10,6 +11,8 @@ from repro_torch.core.features import (DegenerateFeatureSpaceError, Feature,
                                        FeatureBasis, FeatureMatrix,
                                        FeatureUniverse, apply_features,
                                        featurize)
+from repro_torch.core.stepdag import (StepCosts, train_step_dag,
+                                      with_comm_durations)
 from repro_torch.core.sync import ExpandedItem, expand, expanded_names
 
 __all__ = [
@@ -20,4 +23,5 @@ __all__ = [
     "DegenerateFeatureSpaceError", "Feature", "FeatureBasis",
     "FeatureMatrix", "FeatureUniverse", "apply_features", "featurize",
     "ExpandedItem", "expand", "expanded_names",
+    "StepCosts", "train_step_dag", "with_comm_durations",
 ]

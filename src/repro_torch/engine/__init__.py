@@ -15,9 +15,13 @@ Backends:
                   (:class:`ExecutorEvaluator`), the kernel runner sweep
                   for parameter spaces (:class:`KernelWallclockEvaluator`);
                   :func:`make_evaluator` dispatches on the space.
+  ``rpc``         evaluation as a service: miss batches sharded over a
+                  fleet of :mod:`repro_torch.engine.server` hosts with
+                  pipelined dispatch, retry/hedging fault tolerance,
+                  and local fallback — bit-identical to ``sim``.
 
-The three analytic backends run on the host and take no ``device``. The
-JAX package's ``rpc`` service is not ported.
+The four analytic backends (``sim``, ``vectorized``, ``pool``, ``rpc``)
+run on the host and take no ``device``.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ from repro_torch.core.dag import Graph
 from repro_torch.engine.base import BatchEvaluator, EvaluatorBase
 from repro_torch.engine.params import KernelWallclockEvaluator
 from repro_torch.engine.pool import PoolEvaluator
+from repro_torch.engine.rpc import (RpcError, RpcEvaluator, RpcHandshakeError,
+                                    RpcProtocolError)
 from repro_torch.engine.store import EvalStore, store_fingerprint
 from repro_torch.engine.vectorized import (GraphTables, VectorizedEvaluator,
                                            simulate_batch, simulate_encoded)
@@ -40,7 +46,20 @@ BACKENDS: dict[str, type[EvaluatorBase]] = {
     "vectorized": VectorizedEvaluator,
     "pool": PoolEvaluator,
     "wallclock": ExecutorEvaluator,
+    "rpc": RpcEvaluator,
 }
+
+
+def __getattr__(name: str):
+    # The server module is imported lazily so that
+    # ``python -m repro_torch.engine.server`` does not trip runpy's
+    # already-in-sys.modules warning (and a bare ``import
+    # repro_torch.engine`` never pays for the subprocess/CLI machinery).
+    if name in ("EvalServer", "ServerProcess", "spawn_server_process"):
+        from repro_torch.engine import server
+
+        return getattr(server, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def register_backend(name: str, cls: type[EvaluatorBase]) -> None:
@@ -62,7 +81,8 @@ def make_evaluator(graph: "Graph | DesignSpace", backend: str = "wallclock",
     ``kwargs`` are backend-specific (``n_workers`` for ``pool``;
     ``impls``/``env``/``reset``/``t_measure_s`` for schedule spaces and
     ``repeats``, ``warmup``, ``check_values``, ``compile_mode`` for
-    parameter spaces under ``wallclock``; ``device`` for both) plus the
+    parameter spaces under ``wallclock``; ``device`` for both; ``hosts``
+    for ``rpc``) plus the
     shared base-layer knobs: ``noise_sigma`` / ``noise_seed`` and the
     persistent store (``store=`` a shared :class:`EvalStore`, or
     ``store_path=`` a file the evaluator opens and owns).
@@ -84,6 +104,8 @@ def make_evaluator(graph: "Graph | DesignSpace", backend: str = "wallclock",
 __all__ = ["BACKENDS", "make_evaluator", "register_backend",
            "EvaluatorBase", "BatchEvaluator", "VectorizedEvaluator",
            "GraphTables", "simulate_batch", "simulate_encoded",
-           "PoolEvaluator", "EvalStore", "store_fingerprint",
+           "PoolEvaluator", "RpcEvaluator", "RpcError", "RpcHandshakeError",
+           "RpcProtocolError", "EvalServer", "ServerProcess",
+           "spawn_server_process", "EvalStore", "store_fingerprint",
            "ExecutorEvaluator", "KernelWallclockEvaluator",
            "assert_outputs_close", "reference_schedule", "Machine"]

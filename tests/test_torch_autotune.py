@@ -195,7 +195,7 @@ def test_kernel_wallclock_dispatch_and_requirements():
     with pytest.raises(ValueError, match="compile_mode"):
         E.make_evaluator(sp, "wallclock", compile_mode="eager", device=CPU)
     with pytest.raises(ValueError, match="unknown evaluation backend"):
-        E.make_evaluator(sp, "rpc")
+        E.make_evaluator(sp, "no-such-backend")
     with pytest.raises(NotImplementedError, match="no analytic cost"):
         E.make_evaluator(sp, "sim").evaluate([next(sp.enumerate_candidates())])
     g = TC.spmv_dag()

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch/`` (nor
-``chip_smoke.py``, which drives it on the card) imports the JAX package
-``repro`` or ``jax``, at module level or inside a function."""
+``chip_smoke.py``, which drives it on the card, nor the port's examples
+``examples/torch_*.py``) imports the JAX package ``repro`` or ``jax``,
+at module level or inside a function."""
 import ast
 import pathlib
 
@@ -25,7 +26,7 @@ def forbidden(module: str) -> bool:
 
 
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def test_the_walk_sees_the_whole_port():
@@ -36,7 +37,12 @@ def test_the_walk_sees_the_whole_port():
                  "src/repro_torch/search/surrogate.py",
                  "src/repro_torch/rules/boost.py",
                  "src/repro_torch/models/model.py",
-                 "src/repro_torch/serve/engine.py", "chip_smoke.py"):
+                 "src/repro_torch/serve/engine.py",
+                 "src/repro_torch/engine/rpc.py",
+                 "src/repro_torch/engine/server.py",
+                 "src/repro_torch/core/stepdag.py",
+                 "src/repro_torch/launch/costs.py",
+                 "examples/torch_schedule_search.py", "chip_smoke.py"):
         assert must in names
 
 
