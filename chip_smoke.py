@@ -102,6 +102,28 @@ Phases, each printing one JSON line:
                against its plain version and SDPA, which are the
                ``kernels`` line's flash_attention numbers (the autotune
                shape's under ``at_autotune_shape``)
+  train        the training substrate: qwen2.5-32b at full width with 4
+               of its 64 layers, float32 parameters drawn on the card,
+               bfloat16 activations, one sequence of 4,096 lm_batch
+               tokens (seed 0); make_train_step (plain attention, layer
+               and KV-block remat) under AdamW, one warm-up step, then 3
+               with CUDA events around forward, backward and optimizer
+               (ms each, tokens/s, model-FLOP share of the bf16 peak,
+               peak memory, losses: non-finite fails) and one under
+               torch.profiler (idle share; chiprun_out/train_trace.json);
+               the trained model's eval loss through the flash kernel
+               (one launch per layer, counted) within TRAIN_EVAL_TOL of
+               the plain route's, else a failure; on the same trained
+               model and eval tokens, layer by layer, the two routes'
+               attention on the kernel route's q, k, v (the kernel at
+               the train shape, 1 x 40 x 4,096 x 128 bfloat16 with kv
+               widened: within SERVE_ATTN_TOL["bfloat16"] of max |o|,
+               else a failure); one layer's fwd and bwd (and its
+               attention's) beside the train-step DAG's price of them
+               (costs_from_arch at tp = dp = 1 under
+               train_step_machine()); the reference's bit-exact restart
+               at the reduced smollm config (8 steps, failure at 5,
+               resumed), which must hold
 
 Then the card's ``name, power.limit``, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -148,6 +170,27 @@ SERVE = {"arch": "qwen2.5-32b", "n_layers": 24, "batch": 4, "prompt": 1024,
 # layer ~10 (route_divergence).
 SERVE_ATTN_TOL = {"bfloat16": 1e-2, "float32": 2e-3}
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+# The train phase: qwen2.5-32b at full width, depth cut from 64 layers
+# to 4 (3,523,290,112 f32 parameters: parameters, gradients and AdamW's
+# two moments take 56.4 GB), one sequence of train_4k's 4,096 tokens
+# (configs/shapes.py), lm_batch data from seed 0; one warm-up step, then
+# TRAIN["steps"] timed ones and one profiled.
+TRAIN = {"arch": "qwen2.5-32b", "n_layers": 4, "batch": 1, "seq": 4096,
+         "seed": 0, "steps": 3}
+# The trained model's eval loss through the flash kernel against the
+# plain route's, relative: the two routes' attention differs by ~4e-3 of
+# max |o| per layer in bf16 (the serve phase's route_divergence), and
+# the loss averages 4,096 positions' CE over 4 layers. This gate is
+# blind to attention: with random weights the CE is about ln V plus
+# half the logits' variance, which the final rmsnorm fixes whatever
+# attention returns. The kernel is held at the train shape by
+# route_divergence, layer by layer, at SERVE_ATTN_TOL["bfloat16"].
+TRAIN_EVAL_TOL = 1e-2
+# The restart gate: the reference's test_restart_is_bit_exact on the
+# card (reduced smollm-360m, lm_batch, 8 steps, a failure injected at
+# step 5 after the checkpoint at step 3, then resumed).
+RESTART = {"arch": "smollm-360m", "steps": 8, "fail_at": 5,
+           "ckpt_every": 3, "batch": 4, "seq": 16, "lr": 1e-3}
 # Every rpc socket wait is bounded, so no phase can hang on a server.
 RPC_TIMEOUTS = {"deadline": 10.0, "connect_timeout": 5.0}
 
@@ -1002,6 +1045,310 @@ def phase_serve(dev) -> dict:
         raise AssertionError(f"serve: tokens of shape {tuple(tokens.shape)}")
     return res
 
+def restart_run(dev) -> dict:
+    """The restart gate's two runs on the card: one that fails at
+    RESTART["fail_at"] and resumes from its last checkpoint, one
+    uninterrupted. Returns the largest |difference| of any parameter
+    between them (0.0: bit for bit) and the mean wall ms per step."""
+    import tempfile
+
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, batch_for
+    from repro_torch.ft.restart import LoopConfig, TrainLoop
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_reduced(RESTART["arch"])
+    model = LM(cfg, device=dev, seed=0)
+    opt = AdamW(learning_rate=RESTART["lr"])
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+
+    def fresh():
+        p = {k: v.clone() for k, v in start.items()}
+        return p, opt.init(p)
+
+    step = make_train_step(model, opt)
+    dcfg = DataConfig(seq_len=RESTART["seq"], global_batch=RESTART["batch"],
+                      vocab=cfg.vocab)
+
+    def bf(s):
+        return batch_for(dcfg, s, cfg)
+
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        loop = TrainLoop(step, bf, CheckpointStore(os.path.join(tmp, "a")),
+                         LoopConfig(total_steps=RESTART["steps"],
+                                    ckpt_every=RESTART["ckpt_every"]))
+        try:
+            loop.run(*fresh(), fail_at=RESTART["fail_at"])
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        else:
+            raise AssertionError("restart: the injected failure never came")
+        resumed_from = loop.store.latest_step()
+        p1, _ = loop.resume(*fresh())
+        p1 = {k: v.detach().clone() for k, v in p1.items()}
+        ref = TrainLoop(step, bf, CheckpointStore(os.path.join(tmp, "b")),
+                        LoopConfig(total_steps=RESTART["steps"],
+                                   ckpt_every=100))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p2, _ = ref.run(*fresh())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    diff = max(float((p1[k] - p2[k].detach()).abs().max())
+               for k in p1)
+    return {"max_abs_diff": diff, "bit_exact": diff == 0.0 and all(
+                torch.equal(p1[k], p2[k]) for k in p1),
+            "resumed_from": resumed_from,
+            "ms_per_step": wall / RESTART["steps"] * 1e3}
+
+
+def layer_times(model, tokens, iters: int = 3) -> dict:
+    """One layer of ``model`` at the train shape, as the train-step DAG
+    prices it: forward with autograd recording (no layer checkpoint) and
+    its backward to the input and the layer's parameters, by CUDA events
+    (medians of ``iters``); and the plain attention inside it alone."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.blocks import block_forward
+    from repro_torch.models.layers import embed_tokens, rmsnorm, rope
+
+    cfg, p, desc = model.cfg, model.decoder[0], model.descs[0]
+    with torch.no_grad():
+        x0 = embed_tokens(model.embed, tokens, model.dtype)
+        h = rmsnorm(x0, p["norm_mix"], cfg.rms_eps)
+        q, k, v = attn.project_qkv(p["mixer"], h, h, cfg)
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+    params = list(p.parameters())
+
+    def run(fn, inputs):
+        ms = {"fwd": [], "bwd": []}
+        for _ in range(iters + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            y = fn()
+            ev[1].record()
+            torch.autograd.grad(y, inputs, torch.ones_like(y))
+            ev[2].record()
+            torch.cuda.synchronize()
+            ms["fwd"].append(ev[0].elapsed_time(ev[1]))
+            ms["bwd"].append(ev[1].elapsed_time(ev[2]))
+            del y
+        return {key: statistics.median(t[1:]) for key, t in ms.items()}
+
+    x = x0.detach().requires_grad_(True)
+    layer = run(lambda: block_forward(p, x, cfg, desc, None,
+                                      attention="plain")[0], [x, *params])
+    qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    att = run(lambda: attn.self_attention(*qkv, cfg, None, causal=True,
+                                          attention="plain"), qkv)
+    return {"layer_fwd_ms": layer["fwd"], "layer_bwd_ms": layer["bwd"],
+            "attention_fwd_ms": att["fwd"], "attention_bwd_ms": att["bwd"],
+            # The rest of the layer: its products, norms, rope and casts,
+            # the work the DAG's 2N flops a token count.
+            "rest_fwd_ms": layer["fwd"] - att["fwd"],
+            "rest_bwd_ms": layer["bwd"] - att["bwd"]}
+
+
+def phase_train(dev) -> dict:
+    """The training substrate at qwen2.5-32b's full width (depth cut to
+    TRAIN["n_layers"]): make_train_step (plain attention, layer and
+    KV-block remat) under AdamW on lm_batch data, fwd / bwd / optimizer
+    timed by CUDA events, one step profiled; the trained model's eval
+    loss through the flash kernel and the plain route; one layer's fwd
+    and bwd beside the train-step DAG's price of them; and the restart
+    gate at the reduced smollm config."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.launch.costs import (PEAK_FLOPS, costs_from_arch,
+                                          model_flops, train_step_machine)
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    full = get_config(TRAIN["arch"])
+    cfg = dataclasses.replace(full, n_layers=TRAIN["n_layers"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev, seed=TRAIN["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = model.n_params()
+    n_steps = TRAIN["steps"]
+    opt = AdamW(learning_rate=warmup_cosine(3e-3, 20, n_steps + 2))
+    dcfg = DataConfig(seed=TRAIN["seed"], seq_len=TRAIN["seq"],
+                      global_batch=TRAIN["batch"], vocab=cfg.vocab)
+    events: list = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append((name, e))
+
+    step = make_train_step(model, opt, marks=mark)
+    params = dict(model.named_parameters())
+    ostate = opt.init(params)
+
+    # The path: warm-up, timed steps, a profiled step and the eval, every
+    # kernel counted from 0.
+    kernels = kernel_counters()
+    for kern in kernels.values():
+        kern.launches = 0
+    losses, parts = [], {"fwd": [], "bwd": [], "opt": []}
+    for s in range(n_steps + 1):
+        events.clear()
+        mark("start")
+        params, ostate, met = step(params, ostate, lm_batch(dcfg, s))
+        torch.cuda.synchronize()
+        losses.append(float(met["loss"]))
+        if s:
+            at = dict(events)
+            parts["fwd"].append(at["start"].elapsed_time(at["forward"]))
+            parts["bwd"].append(at["forward"].elapsed_time(at["backward"]))
+            parts["opt"].append(at["backward"].elapsed_time(at["optimizer"]))
+    step_peak = torch.cuda.max_memory_allocated()
+    trace = os.path.join(ROOT, "chiprun_out", "train_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    batch = lm_batch(dcfg, n_steps + 1)
+    ks, wall = traced_kernels(
+        {"train_step": lambda: step(params, ostate, batch)},
+        trace)["train_step"]
+    prof = kernel_summary(ks, wall)
+    # Of the products, those on float32 CUDA cores (cuBLAS's ffma
+    # kernels): the plain attention's einsums.
+    prof["gemm_f32_ms"] = sum(t for k, t in ks.items() if "f32f32" in k)
+    prof["trace"] = os.path.relpath(trace, ROOT)
+    eval_batch = lm_batch(dcfg, n_steps + 2)
+    with torch.no_grad():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss_flash, _ = model.loss(eval_batch)
+        ev[1].record()
+        loss_plain, _ = model.loss(eval_batch, attention="plain")
+        ev[2].record()
+        torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    loss_flash, loss_plain = float(loss_flash), float(loss_plain)
+    eval_rel = abs(loss_flash - loss_plain) / abs(loss_plain)
+
+    # The optimizer state freed first: the attention check and one
+    # layer's activations and gradients need a few GB.
+    del ostate, params
+    torch.cuda.empty_cache()
+    # The kernel against the plain route at the train shape, on the
+    # trained model's q, k, v, layer by layer (launches outside the
+    # count above).
+    div = route_divergence(model, eval_batch["tokens"].to(dev),
+                           cfg.dtype)
+    # One layer beside the DAG's price of it.
+    lt = layer_times(model, eval_batch["tokens"].to(dev))
+    del model
+    torch.cuda.empty_cache()
+    dag = costs_from_arch(TRAIN["arch"], full.n_layers,
+                          tokens_per_chip=TRAIN["seq"] * TRAIN["batch"],
+                          tp=1, dp=1)
+    mach = train_step_machine()
+    priced = {}
+    for part, flops, nbytes in (("fwd", dag.fwd_flops, dag.fwd_bytes),
+                                ("bwd", dag.bwd_flops, dag.bwd_bytes)):
+        priced[part] = {
+            "flops": flops, "bytes": nbytes,
+            "flop_term_ms": flops / mach.flops_per_s * 1e3,
+            "byte_term_ms": nbytes / mach.hbm_bytes_per_s * 1e3,
+            "ms": mach.gpu_duration(flops, nbytes) * 1e3,
+            "measured_ms": lt[f"layer_{part}_ms"],
+            "measured_rest_ms": lt[f"rest_{part}_ms"]}
+
+    restart = restart_run(dev)
+
+    step_ms = [f + b + o for f, b, o in zip(*parts.values())]
+    step_med = statistics.median(step_ms)
+    tokens = TRAIN["seq"] * TRAIN["batch"]
+    shape = SHAPES["train_4k"]
+    mflops_6n = model_flops(cfg, "train_4k") / shape.global_batch * \
+        TRAIN["batch"]
+    # The share counts matrix products: the input embedding's table
+    # (vocab x d_model, 22% of the parameters at 4 layers) is a gather,
+    # so its 6 flops a parameter a token are taken out of 6N. The head
+    # is a product and stays.
+    mflops = mflops_6n - 6.0 * cfg.vocab * cfg.d_model * tokens
+    res = {
+        "arch": TRAIN["arch"], "config": dataclasses.asdict(cfg),
+        "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+        "params": n_params, "param_dtype": cfg.param_dtype,
+        "dtype": cfg.dtype, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+        "attention": "plain (train step); flash and plain (eval)",
+        "init_s": init_s, "steps": n_steps,
+        "fwd_ms": parts["fwd"], "bwd_ms": parts["bwd"],
+        "opt_ms": parts["opt"], "step_ms": step_ms,
+        "step_ms_median": step_med,
+        "tokens_per_s": tokens / step_med * 1e3,
+        "model_flops_per_step": mflops,
+        "model_flop_share": mflops / (step_med * 1e-3 * PEAK_FLOPS),
+        "model_flops_per_step_6n_with_embedding": mflops_6n,
+        "model_flop_share_6n_with_embedding":
+            mflops_6n / (step_med * 1e-3 * PEAK_FLOPS),
+        "peak_flops_per_s": PEAK_FLOPS,
+        "losses": losses, "finite": all(np.isfinite(losses)),
+        "max_memory_allocated_step": step_peak,
+        "max_memory_allocated": peak,
+        "headroom_bytes": torch.cuda.get_device_properties(dev)
+        .total_memory - peak,
+        "profile": prof,
+        "eval_loss_flash": loss_flash, "eval_loss_plain": loss_plain,
+        "eval_rel_diff": eval_rel, "eval_tol": TRAIN_EVAL_TOL,
+        "route_divergence": div,
+        "attn_tol": SERVE_ATTN_TOL["bfloat16"],
+        "eval_flash_ms": ev[0].elapsed_time(ev[1]),
+        "eval_plain_ms": ev[1].elapsed_time(ev[2]),
+        "launches": launches,
+        "per_layer": {**lt, "dag_price": priced,
+                      "dag": "costs_from_arch(qwen2.5-32b, 64, "
+                             "tokens_per_chip=4096, tp=1, dp=1) under "
+                             "train_step_machine()"},
+        "restart": restart, "wall_s": time.perf_counter() - t_phase}
+    if not res["finite"]:
+        raise AssertionError(f"train: non-finite losses {losses}")
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"train: {launches['flash_attention']} flash "
+                             f"launches in one eval of {cfg.n_layers} "
+                             "layers")
+    if not eval_rel <= TRAIN_EVAL_TOL:
+        raise AssertionError(f"train: flash eval loss {loss_flash} vs "
+                             f"plain {loss_plain} ({eval_rel} > "
+                             f"{TRAIN_EVAL_TOL})")
+    if not div["attn_rel_max"] <= SERVE_ATTN_TOL["bfloat16"]:
+        raise AssertionError(f"train: flash attention vs plain at the "
+                             f"train shape: {div['attn_rel_max']} of max "
+                             f"|o| > {SERVE_ATTN_TOL['bfloat16']}")
+    if not restart["bit_exact"]:
+        raise AssertionError(f"train: the restart is not bit-exact "
+                             f"(max |diff| {restart['max_abs_diff']})")
+    return res
+
+
+def kernel_counters() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.pack import kernel as pack_k
+    from repro_torch.kernels.spmv import kernel as spmv_k
+
+    return {"ell_spmv": spmv_k.ell_spmv, "pack": pack_k.pack,
+            "flash_attention": fa_k.flash_attention,
+            "ell_onehot": spmv_k.ell_onehot}
+
+
 def phase_race(spmv, dev) -> dict:
     """Both checks must be caught by the value gate, and pass intact."""
     from repro_torch.core.dag import (BoundOp, Graph, Op, OpKind, Schedule,
@@ -1632,6 +1979,9 @@ def main() -> int:
     emit("autotune", **autotune)
     serve = phase_serve(dev)
     emit("serve", **serve)
+    torch.cuda.empty_cache()
+    train = phase_train(dev)
+    emit("train", **train)
     launches = {**main_path["launches"], **onehot_path["launches"],
                 **serve["launches"]}
 
@@ -1639,7 +1989,8 @@ def main() -> int:
                "driver": driver["launches"],
                "onehot_path": onehot_path["launches"],
                "autotune": autotune["launches"],
-               "serve": serve["launches"]}
+               "serve": serve["launches"],
+               "train": {k: n for k, n in train["launches"].items() if n}}
 
     def entry(name, source, replaces, calls, path, summed=(), **extra):
         return {"name": name, "route": "cuda", "source": source,

@@ -58,8 +58,17 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Raises ``ValueError`` for non-causal shapes that are not block
     aligned and for causal shapes whose q and kv padding differ (the
-    JAX wrapper's two asserts).
+    JAX wrapper's two asserts). Raises ``RuntimeError`` for a CUDA
+    operand that requires grad while grad is enabled: the kernel writes
+    its output through ctypes and has no backward (nor has the
+    reference's Pallas kernel), so its output would carry no gradient.
     """
+    if q.device.type != "cpu" and torch.is_grad_enabled() and \
+            any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "mha: the flash kernel has no backward; differentiate through "
+            "the plain route (attention=\"plain\", "
+            "models/attention.py:streaming_attention)")
     b, h, sq, d = q.shape
     skv = k.shape[2]
     pq = (-sq) % block_q

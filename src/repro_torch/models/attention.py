@@ -11,6 +11,10 @@ kernel (csrc/flash_attention.cu) or raises, on a CPU tensor it runs the
 kernel's plain version. :func:`streaming_attention` is the plain route:
 it serves the CPU when asked for, and the shapes the kernel does not
 take (windows, softcap, cross-attention, masked keys, given positions).
+It is also the route that trains: the kernel has no backward, so
+``mha`` raises on a CUDA operand that needs a gradient, and under
+autograd each KV block of :func:`streaming_attention` is checkpointed
+(recomputed in the backward pass), as the reference's is.
 
 Layouts follow the reference: activations (B, S, H, Dh); the stored-KV
 width K (``cfg.head_layout()[0]``) with q head h reading stored head
@@ -19,6 +23,7 @@ h // g.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.models.config import ModelConfig
@@ -149,31 +154,43 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.full((b, hkv, g, sq), NEG_INF, device=q.device)
     l = torch.zeros((b, hkv, g, sq), device=q.device)
     acc = torch.zeros((b, hkv, g, sq, dh), device=q.device)
+    # Nested remat, as the reference's: under autograd each block's
+    # scores are recomputed in the backward pass, not saved.
+    remat = torch.is_grad_enabled()
     for s0 in range(0, t, block_k):
-        kk = k[:, s0:s0 + block_k].float()         # (B,bk,K,Dh)
-        vv = v[:, s0:s0 + block_k].float()
-        kp, kval = kv_positions[s0:s0 + block_k], kv_valid[s0:s0 + block_k]
-        s = torch.einsum("bhgqd,bkhd->bhgqk", qh, kk)
-        if softcap is not None:
-            s = softcap * torch.tanh(s / softcap)
-        mask = kval[None, :]                        # (1, bk)
-        if causal:
-            mask = mask & (kp[None, :] <= q_positions[:, None])
-        if window is not None:
-            mask = mask & (kp[None, :] > q_positions[:, None] - window)
-        s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        pr = torch.exp(s - m_new[..., None])
-        # Fully-masked blocks: exp(-inf - -inf) == 1; zero them explicitly.
-        pr = pr * mask
-        corr = torch.exp(m - m_new)
-        l = l * corr + pr.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
-                                                   pr, vv)
-        m = m_new
+        args = (m, l, acc, qh, k[:, s0:s0 + block_k],
+                v[:, s0:s0 + block_k], kv_positions[s0:s0 + block_k],
+                kv_valid[s0:s0 + block_k], q_positions, causal, window,
+                softcap)
+        m, l, acc = checkpoint(_kv_block, *args, use_reentrant=False) \
+            if remat else _kv_block(*args)
     out = acc / l.clamp_min(1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
     return out.to(q.dtype)
+
+
+def _kv_block(m, l, acc, qh, k, v, kp, kval, q_positions, causal, window,
+              softcap):
+    """One KV block of :func:`streaming_attention`: the running max,
+    sum and accumulator after it."""
+    kk, vv = k.float(), v.float()                  # (B,bk,K,Dh)
+    s = torch.einsum("bhgqd,bkhd->bhgqk", qh, kk)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = kval[None, :]                            # (1, bk)
+    if causal:
+        mask = mask & (kp[None, :] <= q_positions[:, None])
+    if window is not None:
+        mask = mask & (kp[None, :] > q_positions[:, None] - window)
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    pr = torch.exp(s - m_new[..., None])
+    # Fully-masked blocks: exp(-inf - -inf) == 1; zero them explicitly.
+    pr = pr * mask
+    corr = torch.exp(m - m_new)
+    l = l * corr + pr.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", pr, vv)
+    return m_new, l, acc
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,

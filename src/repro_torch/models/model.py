@@ -16,6 +16,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import params as prm
@@ -116,15 +117,45 @@ class LM(nn.Module):
         return prm.count(self.specs())
 
     # -- forward -------------------------------------------------------------
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, *,
+                attention: str = "flash") -> torch.Tensor:
         """Logits over every position, (B, S, padded vocab), in the
-        activation dtype; attention through the flash kernel."""
+        activation dtype. Attention goes through the flash kernel unless
+        ``attention="plain"`` (the streaming softmax, the route that
+        trains: the kernel has no backward, and ``mha`` raises on a CUDA
+        operand that needs a gradient). With grad enabled and
+        ``cfg.remat``, each layer is checkpointed, as the reference
+        checkpoints each period (``repro/models/model.py:128-129``)."""
         cfg = self.cfg
+        remat = cfg.remat and torch.is_grad_enabled()
         x = embed_tokens(self.embed, tokens, self.dtype)
         for p, desc in zip(self.decoder, self.descs):
-            x, _ = block_forward(p, x, cfg, desc, None)
+            if remat:
+                x, _ = checkpoint(block_forward, p, x, cfg, desc, None,
+                                  attention=attention, use_reentrant=False)
+            else:
+                x, _ = block_forward(p, x, cfg, desc, None,
+                                     attention=attention)
         x = rmsnorm(x, self.final_norm, cfg.rms_eps)
         return logits_out(self.embed, x, cfg)
+
+    def loss(self, batch: dict, *, attention: str = "flash"):
+        """Next-token CE (+ z-loss + MoE aux, 0 for the dense family) of
+        ``batch`` = {"tokens", "labels"} (B, S) int, labels -1 ignored,
+        moved to the model's device. Returns (total, {"ce", "z_loss",
+        "aux"}), float32 scalars."""
+        cfg = self.cfg
+        tokens = batch["tokens"].to(self.device)
+        labels = batch["labels"].to(self.device, torch.int64)
+        lf = self.forward(tokens, attention=attention).float()
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels.clamp_min(0)[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        n = mask.sum().clamp_min(1.0)
+        ce = ((lse - gold) * mask).sum() / n
+        zl = cfg.z_loss * ((lse ** 2) * mask).sum() / n
+        aux = torch.zeros((), device=self.device)
+        return ce + zl + aux, {"ce": ce, "z_loss": zl, "aux": aux}
 
     # -- serving ----------------------------------------------------------------
     def init_caches(self, batch: int, t_max: int) -> list[dict]:

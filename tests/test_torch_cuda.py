@@ -540,3 +540,72 @@ def test_generate_on_card_gives_the_cpu_tokens(dev):
         torch.from_numpy(prompts).to(dev), 12)
     want = Engine(on_cpu, t_max=56).generate(torch.from_numpy(prompts), 12)
     assert torch.equal(got.cpu(), want)
+
+
+def test_mha_refuses_a_cuda_operand_that_needs_grad(dev):
+    """The kernel has no backward: under grad it raises, naming the
+    plain route, instead of returning an output without a grad_fn."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention.ops import mha
+    q = torch.randn(1, 2, 128, 64, device=dev, requires_grad=True)
+    before = fa_k.flash_attention.launches
+    with pytest.raises(RuntimeError, match="plain"):
+        mha(q, q.detach(), q.detach())
+    assert fa_k.flash_attention.launches == before
+    with torch.no_grad():
+        out = mha(q, q, q)
+    assert fa_k.flash_attention.launches == before + 1
+    assert out.grad_fn is None and bool(torch.isfinite(out).all())
+
+
+def test_lm_loss_gradients_on_card_equal_the_cpu(dev):
+    """The reduced qwen config (bf16 activations) on the card and on the
+    CPU with one set of weights: loss within 2e-2 relative, each
+    gradient within 0.3 of its norm (the bf16 bound of
+    tests/test_torch_train.py); the flash route refuses a backward."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.models.model import LM
+    cfg = get_reduced("qwen2.5-32b")
+    cpu = LM(cfg, device="cpu", seed=0)
+    card = LM(cfg, device=dev, seed=1)
+    card.load_state_dict(cpu.state_dict())
+    batch = lm_batch(DataConfig(seq_len=64, global_batch=4,
+                                vocab=cfg.vocab), 0)
+    out = []
+    for m in (cpu, card):
+        m.requires_grad_(True)
+        loss, _ = m.loss(batch, attention="plain")
+        out.append((float(loss.detach()), torch.autograd.grad(
+            loss, list(m.parameters()))))
+    assert abs(out[1][0] - out[0][0]) <= 2e-2 * abs(out[0][0])
+    for name, g_cpu, g_card in zip(dict(cpu.named_parameters()),
+                                   out[0][1], out[1][1]):
+        err = float((g_card.cpu().float() - g_cpu.float()).norm())
+        assert err <= 0.3 * float(g_cpu.float().norm()), name
+    with pytest.raises(RuntimeError, match="no backward"):
+        card.loss(batch)
+
+
+def test_three_train_steps_on_card(dev):
+    """make_train_step on the card at the reduced smollm config, the
+    same batch three times: finite losses that fall."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import make_train_step
+    cfg = get_reduced("smollm-360m")
+    m = LM(cfg, device=dev, seed=0)
+    opt = AdamW(learning_rate=3e-3)
+    params = dict(m.named_parameters())
+    state = opt.init(params)
+    step = make_train_step(m, opt)
+    batch = lm_batch(DataConfig(seq_len=32, global_batch=4,
+                                vocab=cfg.vocab), 0)
+    losses = []
+    for _ in range(3):
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+    assert all(np.isfinite(losses)) and losses[2] < losses[0], losses
+    assert params["final_norm"].device.type == "cuda"
