@@ -102,6 +102,29 @@ Phases, each printing one JSON line:
                against its plain version and SDPA, which are the
                ``kernels`` line's flash_attention numbers (the autotune
                shape's under ``at_autotune_shape``)
+  families     the five families the serve phase does not run, each at
+               its config's full width through the same entry points
+               (LM, Engine.generate), f32 weights drawn on the card from
+               a seed, bf16 activations, each in a process of its own
+               (``chip_smoke.py --family ARCH``): jamba-v0.1-52b with 8 of
+               its 32 layers (one period: Mamba, attention, MoE), 4 x
+               1,024 prompt + 16 new tokens; deepseek-moe-16b, rwkv6-3b,
+               internvl2-2b (256 seeded patch embeddings before the
+               text) and whisper-tiny (1,500 seeded frames into its
+               encoder) whole, 2 x 512 + 8. One line each: params and
+               the ``reduced`` cut, prefill ms and decode ms per token
+               by CUDA events, tokens/s, peak memory, flash launches per
+               prefill (gated equal to the decoder's causal attention
+               layers: the encoder and cross-attention take the plain
+               route), the MoE configs' share of (token, expert) pairs
+               the prefill's capacity drops, one prefill and one decode
+               step under torch.profiler (device ms by kernel class,
+               idle share); at every causal attention layer the kernel
+               against the plain route (route_divergence, within
+               SERVE_ATTN_TOL), and layer by layer the decode step from
+               the prefill's caches against the full-sequence form at the
+               same position (cache_check, within FAMILY_CACHE_TOL in
+               bf16, reported in f32); finite logits
   train        the training substrate: qwen2.5-32b at full width with 4
                of its 64 layers, float32 parameters drawn on the card,
                bfloat16 activations, one sequence of 4,096 lm_batch
@@ -193,6 +216,31 @@ RESTART = {"arch": "smollm-360m", "steps": 8, "fail_at": 5,
            "ckpt_every": 3, "batch": 4, "seq": 16, "lr": 1e-3}
 # Every rpc socket wait is bounded, so no phase can hang on a server.
 RPC_TIMEOUTS = {"deadline": 10.0, "connect_timeout": 5.0}
+# The families phase: each non-dense family at its config's full width,
+# f32 parameters drawn on the card from a seed, bf16 activations, cut
+# only where memory forces it. jamba-v0.1-52b keeps one period (4
+# Mamba, 1 attention, 3 Mamba layers; MoE on every other one) of its
+# 32 layers: 53.2 GB of weights, the whole model 206 GB; the others are
+# whole. Each runs in a process of its own (its memory freed at exit,
+# and a fresh profiler: a fourth session in one process records no
+# kernels on the card's machine).
+FAMILIES = {
+    "jamba-v0.1-52b": {"n_layers": 8, "batch": 4, "prompt": 1024,
+                       "new": 16},
+    "deepseek-moe-16b": {"batch": 2, "prompt": 512, "new": 8},
+    "rwkv6-3b": {"batch": 2, "prompt": 512, "new": 8},
+    "internvl2-2b": {"batch": 2, "prompt": 512, "new": 8},
+    "whisper-tiny": {"batch": 2, "prompt": 512, "new": 8},
+}
+FAMILY_TIMEOUT_S = 420
+# The teacher-forced cache check: block_decode's output for the token at
+# position P from the caches block_prefill left after P tokens, against
+# block_forward's output at P on the same layer input, as a share of
+# max |y| there. In bf16 both sides round every activation, at places
+# that differ by an op or two (the kernel's prefill against the decode's
+# one-query softmax; the recurrences' last step), so a few ulps (2^-8
+# each) of y: 1e-2. Reported in f32 too.
+FAMILY_CACHE_TOL = 1e-2
 
 
 
@@ -206,6 +254,17 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ecc_line() -> str:
+    """The card's ECC mode and its corrected and uncorrected error counts
+    since the driver loaded, as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=ecc.mode.current,"
+         "ecc.errors.corrected.volatile.total,"
+         "ecc.errors.uncorrected.volatile.total", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return out.stdout.strip() or out.stderr.strip()
 
 
 def time_cuda(fn, iters: int = 60, cold: bool = True,
@@ -511,6 +570,53 @@ def attention_inputs(dev, batch, heads, seq, head_dim, seed=0):
         for _ in range(3)]
 
 
+# tests/test_kernels.py:118-156: causal sweep (ragged S, bf16, a head dim
+# padded to 64), cross-attention, decode alignment: (q shape, kv shape,
+# dtype, causal).
+ATTN_SWEEP = [((2, 3, 256, 64), (2, 3, 256, 64), torch.float32, True),
+              ((1, 2, 300, 64), (1, 2, 300, 64), torch.float32, True),
+              ((2, 2, 256, 128), (2, 2, 256, 128), torch.bfloat16, True),
+              ((1, 2, 64, 48), (1, 2, 64, 48), torch.float32, True),
+              ((1, 2, 128, 64), (1, 2, 256, 64), torch.float32, False),
+              ((1, 1, 128, 64), (1, 1, 384, 64), torch.float32, True)]
+
+
+def sweep_inputs():
+    """Each ``ATTN_SWEEP`` case with its q, k, v as float32 numpy arrays,
+    drawn in order from one seeded generator."""
+    rng = np.random.default_rng(0)
+    return [(case, [rng.standard_normal(sh).astype(np.float32)
+                    for sh in (case[0], case[1], case[1])])
+            for case in ATTN_SWEEP]
+
+
+def sweep_diagnosis(a, dtype, causal, on_card, on_cpu, dev) -> str:
+    """What a failed sweep case saw, for its error message: whether a
+    second launch on the same inputs gives the same bits (the kernel has
+    no atomics and each output element one writer, so it must), the card's
+    and the CPU's distance from a float64 softmax on the CPU, the worst
+    element, and the card's ECC counters."""
+    from repro_torch.kernels.flash_attention.ops import mha
+
+    again = mha(*(torch.from_numpy(t).to(dev, dtype) for t in a),
+                causal=causal)
+    same = bool(torch.equal(again, on_card))
+    q, k, v = (torch.from_numpy(t).to(dtype).double() for t in a)
+    s = q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5
+    if causal:
+        sq, skv = s.shape[-2:]
+        live = torch.arange(skv)[None, :] <= \
+            torch.arange(sq)[:, None] + (skv - sq)
+        s = s.masked_fill(~live, float("-inf"))
+    ref = torch.softmax(s, -1) @ v
+    d = (on_card.cpu().double() - ref).abs()
+    worst = np.unravel_index(int(d.argmax()), tuple(d.shape))
+    return (f"a second launch gives the same bits: {same}; card vs float64 "
+            f"{float(d.max())}, CPU vs float64 "
+            f"{float((on_cpu.double() - ref).abs().max())}; worst element "
+            f"{tuple(int(i) for i in worst)}; ECC {ecc_line()}")
+
+
 def phase_attention(dev) -> dict:
     """The flash-attention kernel at the autotune instance's shapes
     (default blocks 128 x 128) against its plain version and SDPA, and
@@ -564,19 +670,8 @@ def phase_attention(dev) -> dict:
         "bound_ms_f32_cores": bound_ms(n_bytes, flops)[0]}
     del plain, got
 
-    # tests/test_kernels.py:118-156: causal sweep (ragged S, bf16, a
-    # head dim padded to 64), cross-attention, decode alignment.
     sweep = []
-    rng = np.random.default_rng(0)
-    cases = [((2, 3, 256, 64), (2, 3, 256, 64), torch.float32, True),
-             ((1, 2, 300, 64), (1, 2, 300, 64), torch.float32, True),
-             ((2, 2, 256, 128), (2, 2, 256, 128), torch.bfloat16, True),
-             ((1, 2, 64, 48), (1, 2, 64, 48), torch.float32, True),
-             ((1, 2, 128, 64), (1, 2, 256, 64), torch.float32, False),
-             ((1, 1, 128, 64), (1, 1, 384, 64), torch.float32, True)]
-    for qs, ks, dtype, causal in cases:
-        a = [rng.standard_normal(sh).astype(np.float32)
-             for sh in (qs, ks, ks)]
+    for (qs, ks, dtype, causal), a in sweep_inputs():
         on_card = mha(*(torch.from_numpy(t).to(dev, dtype) for t in a),
                       causal=causal)
         on_cpu = mha(*(torch.from_numpy(t).to(dtype) for t in a),
@@ -584,7 +679,9 @@ def phase_attention(dev) -> dict:
         e = float((on_card.float().cpu() - on_cpu.float()).abs().max())
         tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
         if not e <= tol:
-            raise AssertionError(f"mha {qs} {ks} {dtype}: {e} > {tol}")
+            raise AssertionError(
+                f"mha {qs} {ks} {dtype}: {e} > {tol}; "
+                + sweep_diagnosis(a, dtype, causal, on_card, on_cpu, dev))
         sweep.append({"q": list(qs), "kv": list(ks), "dtype": str(dtype),
                       "causal": causal, "max_abs_err": e})
     return {"flash_attention": [call], "sweep": sweep}
@@ -828,44 +925,71 @@ def kernel_summary(ks: dict, wall: float) -> dict:
             "top": {k: t for k, t in list(ks.items())[:6]}}
 
 
-def route_divergence(model, tokens, dtype: str) -> dict:
+def embedded(model, tokens, frontend, cfg):
+    """(the decoder's input, the encoder's memory or None) in
+    ``cfg.dtype``: ``LM._embed_inputs`` and ``LM._encode`` at another
+    activation dtype than the model's own."""
+    from repro_torch.models.blocks import block_forward
+    from repro_torch.models.layers import embed_tokens, rmsnorm
+
+    dt = getattr(torch, cfg.dtype)
+    x = embed_tokens(model.embed, tokens, dt)
+    fe = None if frontend is None else \
+        frontend.to(dt) @ model.embed["frontend_proj"].to(dt)
+    memory = None
+    if model.enc_stage is not None:
+        memory = fe
+        for p, desc in zip(model.encoder, model.enc_stage.layers):
+            memory, _ = block_forward(p, memory, cfg, desc, None)
+        memory = rmsnorm(memory, model.enc_norm, cfg.rms_eps)
+    elif fe is not None:
+        x = torch.cat([fe, x], dim=1)
+    return x, memory
+
+
+def route_divergence(model, tokens, dtype: str, frontend=None) -> dict:
     """The kernel and the plain attention route through the model's
-    layers in ``dtype`` activations. At each layer, both routes' attention
-    on the kernel route's q, k, v (max |o_kernel - o_plain| / max
-    |o_plain|: the kernel's error on this layer's inputs), and the two
-    routes run free from the same embedding (max and mean |x_kernel -
-    x_plain| / the plain route's: how far an error travels). The kernel
-    launches here are outside the path's count."""
+    decoder layers in ``dtype`` activations. At each causal
+    self-attention layer, both routes' attention on the kernel route's q,
+    k, v (max |o_kernel - o_plain| / max |o_plain|: the kernel's error on
+    this layer's inputs); Mamba and RWKV layers pass through
+    ``block_forward``. Both routes also run free from the same embedding
+    (max and mean |x_kernel - x_plain| / the plain route's: how far an
+    error travels). The kernel launches here are outside the path's
+    count."""
     import dataclasses
 
     from repro_torch.models import attention as attn
     from repro_torch.models.blocks import block_forward
-    from repro_torch.models.layers import embed_tokens, rmsnorm, rope
+    from repro_torch.models.layers import rmsnorm, rope
 
     cfg = dataclasses.replace(model.cfg, dtype=dtype)
-    dt = getattr(torch, dtype)
-    pos = torch.arange(tokens.shape[1], device=tokens.device)
     out: dict = {"attn_rel": [], "resid_rel_max": [], "resid_rel_mean": []}
     with torch.inference_mode():
-        xk = xp = embed_tokens(model.embed, tokens, dt)
+        xk, memory = embedded(model, tokens, frontend, cfg)
+        xp = xk
+        pos = torch.arange(xk.shape[1], device=xk.device)
         for p, desc in zip(model.decoder, model.descs):
-            h = rmsnorm(xk, p["norm_mix"], cfg.rms_eps)
-            q, k, v = attn.project_qkv(p["mixer"], h, h, cfg)
-            q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
-            k, v = attn.repeat_kv(cfg, k), attn.repeat_kv(cfg, v)
-            ok = attn.self_attention(q, k, v, cfg, None, causal=True)
-            op = attn.self_attention(q, k, v, cfg, None, causal=True,
-                                     attention="plain")
-            out["attn_rel"].append(rel_err(ok, op)[1])
-            del h, q, k, v, ok, op
-            xk, _ = block_forward(p, xk, cfg, desc, None)
-            xp, _ = block_forward(p, xp, cfg, desc, None, attention="plain")
+            if desc.kind == "attn":
+                h = rmsnorm(xk, p["norm_mix"], cfg.rms_eps)
+                q, k, v = attn.project_qkv(p["mixer"], h, h, cfg)
+                q = rope(q, pos, cfg.rope_theta)
+                k = rope(k, pos, cfg.rope_theta)
+                k, v = attn.repeat_kv(cfg, k), attn.repeat_kv(cfg, v)
+                ok = attn.self_attention(q, k, v, cfg, None, causal=True)
+                op = attn.self_attention(q, k, v, cfg, None, causal=True,
+                                         attention="plain")
+                out["attn_rel"].append(rel_err(ok, op)[1])
+                del h, q, k, v, ok, op
+            xk, _ = block_forward(p, xk, cfg, desc, None, memory=memory)
+            xp, _ = block_forward(p, xp, cfg, desc, None, memory=memory,
+                                  attention="plain")
             d = (xk.float() - xp.float()).abs()
             out["resid_rel_max"].append(
                 float(d.max() / xp.float().abs().max()))
             out["resid_rel_mean"].append(
                 float(d.mean() / xp.float().abs().mean()))
-    out["attn_rel_max"] = max(out["attn_rel"])
+    out["attn_rel_max"] = max(out["attn_rel"], default=None)
     return out
 
 
@@ -1044,6 +1168,276 @@ def phase_serve(dev) -> dict:
     if tokens.shape != (b, new):
         raise AssertionError(f"serve: tokens of shape {tuple(tokens.shape)}")
     return res
+
+def kernel_classes(ks: dict, wall: float) -> dict:
+    """A profiled part's device ms by kernel class: matrix products
+    (cuBLAS's gemm/xmma/cutlass/nvjet), copies and casts (``.to``,
+    ``contiguous`` and ``cat``: PyTorch's copy kernels), the flash
+    kernel, and the rest (the recurrences' and norms' elementwise work
+    and reductions); the idle share and the five largest kernels."""
+    busy = sum(ks.values())
+    cls = {"products_ms": 0.0, "copies_casts_ms": 0.0, "flash_ms": 0.0,
+           "other_elementwise_ms": 0.0}
+    for k, t in ks.items():
+        low = k.lower()
+        if "flash_fwd_kernel" in k:
+            cls["flash_ms"] += t
+        elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
+            cls["products_ms"] += t
+        elif "copy" in low or "cat" in low:
+            cls["copies_casts_ms"] += t
+        else:
+            cls["other_elementwise_ms"] += t
+    return {"wall_ms": wall, "device_ms": busy, "kernel_names": len(ks),
+            "idle_share": max(0.0, 1 - busy / wall), **cls,
+            "top": {k: t for k, t in list(ks.items())[:5]}}
+
+
+def cache_check(model, tokens, frontend, dtype: str) -> dict:
+    """Layer by layer in ``dtype`` activations: the decoder layer's
+    input over P + 1 positions (the full forward's), block_forward's
+    output at position P against block_decode's for that token from the
+    cache block_prefill left after P positions (KV, conv/h, shift/s,
+    ck/cv), as a share of max |y| at P (and of max |y - x| there, the
+    layer's own update). MoE layers run dropless on both sides:
+    capacity_factor E / top_k makes the capacity the whole sequence."""
+    import dataclasses
+
+    from repro_torch.models.blocks import (block_decode, block_forward,
+                                           block_prefill)
+
+    cfg = dataclasses.replace(model.cfg, dtype=dtype)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    rel, rel_upd = [], []
+    with torch.inference_mode():
+        x, memory = embedded(model, tokens, frontend, cfg)
+        last = x.shape[1] - 1
+        for p, desc in zip(model.decoder, model.descs):
+            y, _ = block_forward(p, x, cfg, desc, None, memory=memory)
+            _, _, cache = block_prefill(p, x[:, :last], cfg, desc, None,
+                                        last + 1, memory=memory)
+            yd, _ = block_decode(p, x[:, last:], cfg, desc, last, cache)
+            ref, got = y[:, last].float(), yd[:, 0].float()
+            d = float((got - ref).abs().max())
+            rel.append(d / float(ref.abs().max()))
+            rel_upd.append(d / float((ref - x[:, last].float()).abs().max()))
+            del cache, yd
+            x = y
+    return {"rel": rel, "rel_max": max(rel), "rel_of_update": rel_upd,
+            "rel_of_update_max": max(rel_upd), "position": last}
+
+
+def family_run(arch: str, dev) -> dict:
+    """One configuration of the families phase (FAMILIES[arch]) through
+    the port's serving entry points: LM on the card, Engine.generate on
+    batch x prompt tokens (behind the VLM prefix; whisper's frames into
+    its encoder), the flash kernel counted; prefill and decode by CUDA
+    events; the prefill's MoE drops; one prefill and one decode step
+    profiled; the kernel against the plain route at every causal
+    attention layer (route_divergence) and the teacher-forced cache
+    check (cache_check), in bf16 and f32."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.models import moe
+    from repro_torch.models.model import LM
+    from repro_torch.serve.engine import Engine, make_serve_step
+
+    run = FAMILIES[arch]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=run.get("n_layers",
+                                                     full.n_layers))
+    reduced = {} if cfg.n_layers == full.n_layers else \
+        {"n_layers": [full.n_layers, cfg.n_layers]}
+    b, s, new = run["batch"], run["prompt"], run["new"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (b, s))).to(dev)
+    frontend = None
+    if cfg.frontend is not None:
+        gen = torch.Generator(device=dev).manual_seed(2)
+        frontend = torch.randn((b, cfg.frontend.n_positions,
+                                cfg.frontend.d_frontend), generator=gen,
+                               device=dev)
+    n_front = model.n_front
+    t_max = n_front + s + new
+    engine = Engine(model, t_max=t_max)
+    engine.generate(prompts[:, :64], 2, frontend=frontend)   # warm-up
+    want_flash = sum(d.kind == "attn" and d.causal for d in model.descs)
+
+    # The path: one generate, the kernel counted from 0.
+    fa_k.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompts, new, frontend=frontend)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = fa_k.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != want_flash:
+        raise AssertionError(f"families {arch}: {launches} flash launches "
+                             f"in one prefill, {want_flash} causal "
+                             "attention layers")
+    if tokens.shape != (b, new):
+        raise AssertionError(f"families {arch}: tokens of shape "
+                             f"{tuple(tokens.shape)}")
+
+    def prefill():
+        return model.prefill(prompts, t_max, frontend=frontend)
+
+    def events_ms(fn, n):
+        out = []
+        for _ in range(n):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            out.append(e0.elapsed_time(e1))
+        return out
+
+    prefill_all = events_ms(prefill, 3)
+    logits, caches = prefill()
+    finite = bool(torch.isfinite(logits).all())
+    step = make_serve_step(model)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    step_ms = []
+    with torch.inference_mode():
+        for i in range(new - 1):
+            def one(i=i):
+                nonlocal tok, caches
+                tok, _, caches = step(caches, tok, n_front + s + i)
+            step_ms += events_ms(one, 1)
+    decode_ms = statistics.median(step_ms)
+
+    # What the prefill's capacity (capacity_factor as configured) drops.
+    drops = None
+    if cfg.moe is not None:
+        seen = []
+        positions = moe._positions
+
+        def recording(top_e, e, c):
+            pos, keep = positions(top_e, e, c)
+            seen.append(((~keep).sum(), keep.numel()))
+            return pos, keep
+        moe._positions = recording
+        try:
+            prefill()
+        finally:
+            moe._positions = positions
+        per_layer = [float(d) / n for d, n in seen]
+        drops = {"capacity_factor": cfg.moe.capacity_factor,
+                 "share": sum(float(d) for d, _ in seen) /
+                 sum(n for _, n in seen),
+                 "share_by_layer": per_layer}
+
+    # Where the time goes: one prefill and one decode step profiled.
+    with tempfile.TemporaryDirectory() as tmp:
+        parts = traced_kernels(
+            {"prefill": prefill,
+             "decode_step": lambda: step(caches, tok, n_front + s + new - 1)},
+            os.path.join(tmp, "trace.json"))
+    prof = {k: kernel_classes(*v) for k, v in parts.items()}
+    # The profiler slows the host: the idle share of an unprofiled call
+    # is its device ms over its median by CUDA events.
+    for k, ms in (("prefill", statistics.median(prefill_all)),
+                  ("decode_step", decode_ms)):
+        prof[k]["idle_share_events"] = max(0.0, 1 - prof[k]["device_ms"] / ms)
+    del caches, logits
+
+    # Correctness: the kernel at every causal attention layer, and the
+    # caches against the full-sequence form, on the first sequences.
+    nb = min(2, b)
+    check_tokens = torch.cat([prompts[:nb], tokens[:nb, :1]], dim=1)
+    check_front = None if frontend is None else frontend[:nb]
+    diverge = None
+    if want_flash:
+        diverge = {name: route_divergence(model, prompts, name, frontend)
+                   for name in SERVE_ATTN_TOL}
+    caches_ok = {name: cache_check(model, check_tokens, check_front, name)
+                 for name in ("bfloat16", "float32")}
+
+    res = {
+        "arch": arch, "family": cfg.family, "reduced": reduced,
+        "widths": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                   "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+                   "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                   "moe": None if cfg.moe is None else
+                   dataclasses.asdict(cfg.moe),
+                   "frontend": None if cfg.frontend is None else
+                   dataclasses.asdict(cfg.frontend)},
+        "layers": [d.kind + ("+moe" if d.moe else "") +
+                   ("+cross" if d.cross else "") for d in model.descs],
+        "params": model.n_params(), "param_dtype": cfg.param_dtype,
+        "dtype": cfg.dtype, "batch": b, "prompt_tokens": s,
+        "prefix_positions": n_front, "new_tokens": new, "init_s": init_s,
+        "generate_s": gen_s, "tokens_per_s": b * new / gen_s,
+        "prefill_ms": statistics.median(prefill_all),
+        "prefill_ms_all": prefill_all,
+        "prefill_tokens_per_s": b * (n_front + s) /
+        statistics.median(prefill_all) * 1e3,
+        "decode_ms_per_token": decode_ms,
+        "decode_tokens_per_s": b / decode_ms * 1e3,
+        "decode_ms_all": step_ms, "max_memory_allocated": peak,
+        "launches": {"flash_attention": launches},
+        "causal_attention_layers": want_flash, "moe_drops": drops,
+        "finite": finite, "profile": prof, "route_divergence": diverge,
+        "cache_check": caches_ok, "check_batch": nb}
+    if not finite:
+        raise AssertionError(f"families {arch}: non-finite logits")
+    for name, d in (diverge or {}).items():
+        if not d["attn_rel_max"] <= SERVE_ATTN_TOL[name]:
+            raise AssertionError(
+                f"families {arch}: {name} kernel-vs-plain attention "
+                f"differs by {d['attn_rel_max']} of max |o|")
+    got = caches_ok["bfloat16"]["rel_max"]
+    if not got <= FAMILY_CACHE_TOL:
+        raise AssertionError(f"families {arch}: bf16 decode from the "
+                             f"caches differs by {got} of max |y|")
+    return res
+
+
+def phase_families() -> dict:
+    """Each FAMILIES configuration by family_run in a process of its own
+    (``chip_smoke.py --family ARCH``, which prints its result as its
+    last line); one ``families`` line each. A process that fails fails
+    the phase."""
+    out = {}
+    for arch in FAMILIES:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--family", arch],
+            capture_output=True, text=True, timeout=FAMILY_TIMEOUT_S,
+            cwd=ROOT)
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"families {arch}: exit {proc.returncode}\n"
+                f"{proc.stderr[-6000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        res["process_s"] = time.perf_counter() - t0
+        emit("families", **res)
+        out[arch] = res
+    return out
+
+
+def family_main(arch: str) -> int:
+    """The child of phase_families: one configuration, its result as
+    one JSON line."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.device import resolve_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps(family_run(arch, resolve_device())), flush=True)
+    return 0
+
 
 def restart_run(dev) -> dict:
     """The restart gate's two runs on the card: one that fails at
@@ -1924,7 +2318,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device()
     smi = nvidia_smi_line()
-    emit("probe", nvidia_smi=smi, **probe())
+    emit("probe", nvidia_smi=smi, ecc=ecc_line(), **probe())
 
     report = build.build()
     # Each function's name, then its registers and spills.
@@ -1980,6 +2374,7 @@ def main() -> int:
     serve = phase_serve(dev)
     emit("serve", **serve)
     torch.cuda.empty_cache()
+    families = phase_families()
     train = phase_train(dev)
     emit("train", **train)
     launches = {**main_path["launches"], **onehot_path["launches"],
@@ -1990,6 +2385,9 @@ def main() -> int:
                "onehot_path": onehot_path["launches"],
                "autotune": autotune["launches"],
                "serve": serve["launches"],
+               "families": {"flash_attention": sum(
+                   f["launches"]["flash_attention"]
+                   for f in families.values())},
                "train": {k: n for k, n in train["launches"].items() if n}}
 
     def entry(name, source, replaces, calls, path, summed=(), **extra):
@@ -2045,4 +2443,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--family":
+        sys.exit(family_main(sys.argv[2]))
     sys.exit(main())

@@ -10,9 +10,9 @@ the train step moves to the model's device.
   * ``packed_batch`` documents packed to seq_len with EOS separators and
     -1 labels on the targets that cross a boundary.
 
-``frontend_batch`` (the audio/VLM frontends' pseudo-embeddings) needs a
-normal draw and a frontend model, which come with ROADMAP Queue 1 item
-7: it raises.
+``frontend_batch`` (the audio/VLM frontends' pseudo-embeddings) needs
+``jax.random.normal`` in numpy, which comes with the training of the
+non-dense families (ROADMAP Queue 1 item 11): it raises.
 """
 from __future__ import annotations
 
@@ -76,8 +76,9 @@ def packed_batch(cfg: DataConfig, step: int) -> dict:
 
 def frontend_batch(cfg: DataConfig, step: int, model_cfg: ModelConfig):
     raise NotImplementedError(
-        f"{model_cfg.name}: frontend batches need a normal draw and a "
-        "frontend model, which are not ported yet (ROADMAP Queue 1 item 7)")
+        f"{model_cfg.name}: frontend batches need jax.random.normal in "
+        "numpy, which waits for the training of the non-dense families "
+        "(ROADMAP Queue 1 item 11)")
 
 
 def batch_for(cfg: DataConfig, step: int, model_cfg: ModelConfig) -> dict:

@@ -1,12 +1,15 @@
 """Serving launcher: batched prefill + greedy decode of a reduced config.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
       --new 12 [--device cpu]
 
-The dense configs only; the decode-cell dry-run on a production mesh
-(``--dry-run``) waits for the distribution layer (ROADMAP Queue 1 item
-9). Weights come from ``--seed``, prompts from ``--seed + 1``.
+Every architecture of ``repro_torch.configs``; the decode-cell dry-run
+on a production mesh (``--dry-run``) waits for the distribution layer
+(ROADMAP Queue 1 item 9). Weights come from ``--seed``, prompts from
+``--seed + 1`` (numpy) and, for the enc-dec and VLM families, frame or
+patch embeddings from a standard normal on the model's device seeded
+with ``--seed + 2``.
 """
 from __future__ import annotations
 
@@ -41,8 +44,15 @@ def main(argv: list[str] | None = None) -> None:
     model = LM(cfg, device=args.device, seed=args.seed)
     prompts = torch.from_numpy(np.random.default_rng(args.seed + 1).integers(
         0, cfg.vocab, (args.batch, args.prompt_len))).to(model.device)
-    engine = Engine(model, t_max=args.prompt_len + args.new + 1)
-    out = engine.generate(prompts, args.new)
+    frontend = None
+    if cfg.frontend is not None:
+        gen = torch.Generator(device=model.device).manual_seed(args.seed + 2)
+        frontend = torch.randn(
+            (args.batch, cfg.frontend.n_positions, cfg.frontend.d_frontend),
+            generator=gen, device=model.device)
+    engine = Engine(model, t_max=model.n_front + args.prompt_len +
+                    args.new + 1)
+    out = engine.generate(prompts, args.new, frontend=frontend)
     for b in range(args.batch):
         print(f"seq{b}: {out[b].tolist()}")
 

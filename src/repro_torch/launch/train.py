@@ -10,7 +10,8 @@ reduced config, packed synthetic data, AdamW under warmup_cosine(3e-3,
 accounting. It prints every step's loss (the reference prints every
 tenth). Parameters are drawn from seed 0 on ``--device``, the card
 unless ``cpu`` is given. Without ``--ckpt-dir`` the checkpoints go to a
-temporary directory, removed at exit. The dense configs only;
+temporary directory, removed at exit. The dense configs only (the
+other families wait for ROADMAP Queue 1 item 11);
 ``--dry-run`` (compile the full config on a production mesh) waits for
 the distribution layer (ROADMAP Queue 1 item 9).
 """

@@ -2,10 +2,11 @@
 
 :func:`params_from_jax` takes the tree that the reference's ``LM.init``
 returns, as nested dicts of numpy arrays, and gives the port's
-``state_dict`` for it: the ``decoder`` stage's leading period axis is
-unstacked into one entry per layer (layer ``period * P + i`` takes slot
-``i`` of period ``period``, P the period's length) and each Spec path
-becomes the parameter of the same dotted name. :func:`tree_from_jax`
+``state_dict`` for it: each stage's (``encoder``, ``decoder``) leading
+period axis is unstacked into one entry per layer (layer ``period * P +
+i`` takes slot ``i`` of period ``period``, P the period's length; the
+stacked experts of a MoE layer stay stacked in their parameter) and
+each Spec path becomes the parameter of the same dotted name. :func:`tree_from_jax`
 does the same for any tree of that shape (gradients, the optimizer's
 moments), as numpy arrays, so the two packages compare name by name.
 """
@@ -29,25 +30,27 @@ def _flatten(tree, prefix: str = "") -> dict:
 def tree_from_jax(tree: dict, model: LM) -> dict[str, np.ndarray]:
     """A tree shaped like the reference's parameters (its parameters,
     their gradients, an optimizer moment) as numpy arrays under
-    ``model``'s parameter names, the ``decoder`` stage unstacked. Raises
+    ``model``'s parameter names, each stage unstacked. Raises
     ``KeyError`` for a leaf the model has no parameter for or a
     parameter no leaf fills, ``ValueError`` for a leaf of the wrong
     shape."""
     want = {k: tuple(p.shape) for k, p in model.state_dict().items()}
-    width = len(model.specs()["decoder"])      # layers in a period
-    n_periods = model.cfg.n_layers // width
+    # Layers in a period and periods, per stage.
+    stages = {st.name: (len(st.descs), st.n_periods)
+              for st in model.all_stages()}
     out: dict[str, np.ndarray] = {}
     for path, leaf in _flatten(tree).items():
         arr = np.asarray(leaf)
         stage, _, rest = path.partition(".")
         items = [(path, arr)]
-        if stage == "decoder":
+        if stage in stages:
+            width, n_periods = stages[stage]
             if arr.shape[:1] != (n_periods,):
                 raise ValueError(
                     f"params_from_jax: {path} has the shape "
                     f"{tuple(arr.shape)}, not {n_periods} stacked periods")
             slot, _, name = rest.partition(".")
-            items = [(f"decoder.{per * width + int(slot)}.{name}", arr[per])
+            items = [(f"{stage}.{per * width + int(slot)}.{name}", arr[per])
                      for per in range(n_periods)]
         for key, a in items:
             if key not in want:

@@ -15,6 +15,9 @@ Attention runs on the plain route (the streaming softmax, with the
 reference's nested remat); the flash kernel has no backward. The
 reference's ``train_shardings`` and ``jit_train_step`` place the step on
 a mesh and wait for the distribution layer (ROADMAP Queue 1 item 9).
+The dense family only: training the MoE, Mamba, RWKV, enc-dec and VLM
+configs (their gradient parity, Mamba's chunked checkpoint, frontend
+batches) waits for ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -46,6 +49,10 @@ def make_train_step(model: LM, opt: AdamW, microbatches: int = 1, *,
     loss, ``"backward"`` after each gradient and ``"optimizer"`` after
     the update (a caller timing the parts records a CUDA event there).
     """
+    if model.cfg.family != "dense":
+        raise NotImplementedError(
+            f"{model.cfg.name}: training the {model.cfg.family} family "
+            "waits for ROADMAP Queue 1 item 11")
     model.requires_grad_(True)
     mark = marks or (lambda _: None)
 

@@ -542,6 +542,38 @@ def test_generate_on_card_gives_the_cpu_tokens(dev):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "rwkv6-3b",
+                                  "jamba-v0.1-52b", "whisper-tiny",
+                                  "internvl2-2b"])
+def test_generate_on_card_gives_the_cpu_tokens_for_every_family(dev, arch):
+    """Greedy tokens of each non-dense family's reduced config in
+    float32 on the card (flash prefill where attention is causal, the
+    Mamba and RWKV recurrences, MoE dispatch, the encoder and the VLM
+    prefix) equal those of the same weights and frontend on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.model import LM
+    from repro_torch.serve.engine import Engine
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    on_card = LM(cfg, device=dev, seed=2)
+    on_cpu = LM(cfg, device="cpu", seed=3)
+    on_cpu.load_state_dict({k: v.cpu()
+                            for k, v in on_card.state_dict().items()})
+    rng = np.random.default_rng(4)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 40)))
+    front = None
+    if cfg.frontend is not None:
+        front = torch.from_numpy(rng.standard_normal(
+            (3, cfg.frontend.n_positions, cfg.frontend.d_frontend)).astype(
+            np.float32))
+    t_max = on_cpu.n_front + 56
+    got = Engine(on_card, t_max=t_max).generate(
+        prompts.to(dev), 12, frontend=None if front is None else front.to(dev))
+    want = Engine(on_cpu, t_max=t_max).generate(prompts, 12, frontend=front)
+    assert torch.equal(got.cpu(), want)
+
+
 def test_mha_refuses_a_cuda_operand_that_needs_grad(dev):
     """The kernel has no backward: under grad it raises, naming the
     plain route, instead of returning an output without a grad_fn."""

@@ -100,6 +100,6 @@ def test_data_deterministic_and_stateless():
 def test_frontend_batches_wait_for_item_7():
     cfg = get_reduced("internvl2-2b")
     dcfg = data.DataConfig(seq_len=16, global_batch=2, vocab=cfg.vocab)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         data.batch_for(dcfg, 0, cfg)
 

@@ -42,7 +42,11 @@ def test_the_walk_sees_the_whole_port():
                  "src/repro_torch/engine/server.py",
                  "src/repro_torch/core/stepdag.py",
                  "src/repro_torch/launch/costs.py",
-                 "examples/torch_schedule_search.py", "chip_smoke.py"):
+                 "src/repro_torch/models/moe.py",
+                 "src/repro_torch/models/mamba.py",
+                 "src/repro_torch/models/rwkv6.py",
+                 "examples/torch_schedule_search.py",
+                 "examples/torch_serve_lm.py", "chip_smoke.py"):
         assert must in names
 
 

@@ -1,8 +1,9 @@
 """The port's serving path (``repro_torch.serve.engine``,
 ``repro_torch.launch.serve``) on the CPU: greedy generation gives the JAX
-package's tokens in float32 on the same weights, the launcher runs with
-``--device cpu`` and raises without a card otherwise, and the families
-not ported yet raise at construction."""
+package's tokens in float32 on the same weights for every architecture
+(the enc-dec and VLM families with their frontend embeddings), and the
+launcher runs every architecture with ``--device cpu`` and raises
+without a card otherwise."""
 import dataclasses
 
 import numpy as np
@@ -12,9 +13,11 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from _numpy_weights import numpy_tree  # noqa: E402
 
 from repro.configs import get_reduced as r_get_reduced  # noqa: E402
 from repro.models.model import LM as RLM  # noqa: E402
+from repro.models.params import Spec as RSpec  # noqa: E402
 from repro.serve.engine import Engine as REngine  # noqa: E402
 from repro_torch.configs import ARCHS, get_reduced  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
@@ -29,15 +32,30 @@ def f32(cfg):
     return dataclasses.replace(cfg, dtype="float32")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_generate_gives_the_references_tokens_in_float32(arch):
+    """The dense configs on the reference's own init, the other families
+    on numpy weights (``tests/_numpy_weights.py``), with numpy frame or
+    patch embeddings."""
     rm = RLM(f32(r_get_reduced(arch)))
-    rp = rm.init(jax.random.PRNGKey(0))
+    if arch in DENSE:
+        rp = jax.tree.map(np.asarray, rm.init(jax.random.PRNGKey(0)))
+    else:
+        rp = numpy_tree(rm.specs(), 3, RSpec)
     m = LM(f32(get_reduced(arch)), device="cpu")
-    m.load_state_dict(params_from_jax(jax.tree.map(np.asarray, rp), m))
-    prompts = np.random.default_rng(2).integers(0, rm.vocab_real, (3, 10))
-    want = REngine(rm, rp, t_max=24).generate(jnp.asarray(prompts), 8)
-    got = Engine(m, t_max=24).generate(torch.from_numpy(prompts), 8)
+    m.load_state_dict(params_from_jax(rp, m))
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(0, rm.vocab_real, (3, 10))
+    fe = m.cfg.frontend
+    front = None if fe is None else rng.standard_normal(
+        (3, fe.n_positions, fe.d_frontend)).astype(np.float32)
+    t_max = 24 + m.n_front
+    want = REngine(rm, jax.tree.map(jnp.asarray, rp), t_max=t_max).generate(
+        jnp.asarray(prompts), 8,
+        frontend=None if front is None else jnp.asarray(front))
+    got = Engine(m, t_max=t_max).generate(
+        torch.from_numpy(prompts), 8,
+        frontend=None if front is None else torch.from_numpy(front))
     assert got.shape == (3, 8)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -58,10 +76,15 @@ def test_generate_refuses_more_tokens_than_the_cache_holds():
     m = LM(get_reduced("smollm-360m"), device="cpu")
     with pytest.raises(ValueError, match="t_max"):
         Engine(m, t_max=8).generate(torch.zeros((1, 6), dtype=torch.long), 4)
+    m = LM(get_reduced("internvl2-2b"), device="cpu")     # 8 prefix positions
+    with pytest.raises(ValueError, match="8 prefix"):
+        Engine(m, t_max=16).generate(torch.zeros((1, 6), dtype=torch.long),
+                                     4, frontend=torch.zeros((1, 8, 32)))
 
 
-def test_launcher_runs_on_the_cpu(capsys):
-    launch_serve.main(["--arch", "smollm-360m", "--new", "5", "--batch", "2",
+@pytest.mark.parametrize("arch", ARCHS)
+def test_launcher_runs_on_the_cpu(capsys, arch):
+    launch_serve.main(["--arch", arch, "--new", "5", "--batch", "2",
                        "--prompt-len", "6", "--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split(":")[0] for ln in lines] == ["seq0", "seq1"]
@@ -79,9 +102,3 @@ def test_launcher_raises_without_a_card(monkeypatch):
 def test_launcher_dry_run_waits_for_the_distribution_layer():
     with pytest.raises(NotImplementedError, match="item 9"):
         launch_serve.main(["--arch", "qwen2.5-32b", "--dry-run"])
-
-
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE])
-def test_families_not_ported_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        LM(get_reduced(arch), device="cpu")

@@ -177,7 +177,7 @@ def test_launch_train_on_the_cpu_prints_every_loss(tmp_path):
 def test_launch_train_refuses_what_it_cannot_run(monkeypatch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         launch_train.main(["--arch", "qwen2.5-32b", "--dry-run"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         launch_train.main(["--arch", "deepseek-moe-16b", "--device", "cpu",
                            "--steps", "1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
