@@ -147,6 +147,25 @@ Phases, each printing one JSON line:
                train_step_machine()); the reference's bit-exact restart
                at the reduced smollm config (8 steps, failure at 5,
                resumed), which must hold
+  dist         the distribution and launch layer, two processes.
+               ``dryrun``: qwen2.5-32b x train_4k and x decode_32k on the
+               16x16 mesh over a fake group of 256 ranks on the card's
+               host (no card, nothing allocated): per-GPU argument,
+               temporary and output bytes, dot FLOPs, collective bytes
+               by kind and by mesh axis, the roofline's terms on the
+               H100 constants, wall seconds. ``card``: the same
+               build_cell/jit_train_step on a 1x1 mesh over a one-rank
+               NCCL group at the train phase's cell (full width, 4 of 64
+               layers, 1 x 4,096 tokens): predicted on the meta device
+               (bytes, dot FLOPs), then three steps on the card: the
+               first's loss and updated parameters must be
+               make_train_step's on the same card and inputs within
+               DIST_STEP_RTOL, the second's dot FLOPs (FlopCounterMode)
+               the prediction's within DIST_FLOPS_TOL, the third is
+               timed (predicted over measured bytes and the roofline's
+               compute term over that time reported); then compressed_psum_mean over
+               that group on one layer's gradients, bit for bit the
+               CPU's (two rounds: the residual carried)
 
 Then the card's ``name, power.limit``, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -241,6 +260,27 @@ FAMILY_TIMEOUT_S = 420
 # one-query softmax; the recurrences' last step), so a few ulps (2^-8
 # each) of y: 1e-2. Reported in f32 too.
 FAMILY_CACHE_TOL = 1e-2
+# The dist phase (the distribution and launch layer). ``dryrun``: the
+# qwen2.5-32b cells on the 16x16 production mesh over a fake group of
+# 256 ranks, nothing allocated, in a process of its own on the card's
+# host. ``card``: the train cell's build_cell/jit_train_step on a 1x1
+# mesh over a one-rank NCCL group, at full width with 4 of 64 layers and
+# one sequence of 4,096 tokens (the train phase's cell): predicted on
+# the meta device, then one step on the card, held to make_train_step
+# on the same card and inputs; and compressed_psum_mean over that group
+# on one layer's gradients, held to the CPU's. A fake group and an NCCL
+# group cannot both be a process's default, so each part runs in a
+# process of its own.
+DIST = {"arch": "qwen2.5-32b", "dryrun_shapes": ("train_4k", "decode_32k"),
+        "card_layers": 4, "card_batch": 1, "card_seq": 4096, "seed": 0}
+# Predicted (meta device, the dry run's analyzer) against counted
+# (FlopCounterMode over the step on the card) dot FLOPs, relative.
+DIST_FLOPS_TOL = 1e-3
+# The distributed step against make_train_step: bit for bit is what a
+# 1x1 mesh should give (every collective is over one rank); the gate
+# allows 1e-6 of max |value| per tensor.
+DIST_STEP_RTOL = 1e-6
+DIST_TIMEOUT_S = 600
 
 
 
@@ -1732,6 +1772,274 @@ def phase_train(dev) -> dict:
     return res
 
 
+def dist_dryrun() -> dict:
+    """The child ``--dist dryrun``: DIST["dryrun_shapes"] of DIST["arch"]
+    through launch/dryrun.py's run_cell on the 16x16 mesh (a fake group
+    of 256 ranks in this process, no card): per-GPU bytes, dot FLOPs,
+    collective bytes by kind and by mesh axis, the roofline's terms on
+    the H100 constants, wall seconds."""
+    import pathlib
+
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for shape in DIST["dryrun_shapes"]:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(
+            DIST["arch"], shape, multi_pod=False, force=True,
+            out_dir=pathlib.Path(ROOT) / "chiprun_out" / "dryrun")
+        mem, hlo, rl = rec["memory_analysis"], rec["hlo"], rec["roofline"]
+        out[shape] = {
+            "mesh": rec["mesh"], "gpus": rec["chips"],
+            "microbatches": rec["meta"].get("microbatches"),
+            "argument_bytes": mem["argument_size_in_bytes"],
+            "temp_bytes": mem["temp_size_in_bytes"],
+            "output_bytes": mem["output_size_in_bytes"],
+            "alias_bytes": mem["alias_size_in_bytes"],
+            "per_gpu_bytes": rec["per_device_bytes"],
+            "dot_flops_per_gpu": hlo["dot_flops_per_chip"],
+            "collective_bytes": hlo["collective_bytes"],
+            "collective_count": hlo["collective_count"],
+            "collective_bytes_by_axis": hlo["collective_bytes_by_axis"],
+            "roofline": {k: rl[k] for k in (
+                "compute_s", "memory_s", "collective_s", "dominant",
+                "step_time_s", "model_flops_ratio", "roofline_fraction")},
+            "run_s": rec["timings"]["run_s"],
+            "wall_s": time.perf_counter() - t0}
+        if not out[shape]["dot_flops_per_gpu"] > 0 or \
+                not out[shape]["per_gpu_bytes"] > 0:
+            raise AssertionError(f"dist dryrun {shape}: nothing counted")
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def dist_card(dev, backend: str = "nccl", cfg=None,
+              seq: int | None = None) -> dict:
+    """The child ``--dist card``: the 1x1-mesh train cell and the
+    compressed sync on a one-rank ``backend`` group (``cfg``/``seq``
+    replace the full-width cut, to rehearse on the CPU with gloo)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES, ShapeCell
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.dist.compress import compressed_psum_mean, init_ef
+    from repro_torch.launch import hlo
+    from repro_torch.launch.costs import PEAK_FLOPS
+    from repro_torch.launch.inputs import build_cell
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import make_train_step, place
+
+    t_phase = time.perf_counter()
+    dist.init_process_group(backend,
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    mesh = make_local_mesh(1, 1, device_type=dev.type)
+    full = get_config(DIST["arch"])
+    cfg = cfg or dataclasses.replace(full, n_layers=DIST["card_layers"])
+    seq = seq or DIST["card_seq"]
+    SHAPES["card_train"] = ShapeCell("card_train", seq, DIST["card_batch"],
+                                     "train")
+    dcfg = DataConfig(seed=DIST["seed"], seq_len=seq,
+                      global_batch=DIST["card_batch"], vocab=cfg.vocab)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # 1. The prediction: the cell on the meta device, nothing allocated.
+    t0 = time.perf_counter()
+    cell = build_cell(DIST["arch"], "card_train", mesh, cfg=cfg,
+                      device="meta", microbatches=1)
+    pred, _ = hlo.analyze(cell.fn, *cell.args, mesh=mesh,
+                          counter=cell.counter)
+    predict_s = time.perf_counter() - t0
+    mem = pred.memory
+    pred_bytes = mem["argument_size_in_bytes"] + \
+        mem["temp_size_in_bytes"] + mem["output_size_in_bytes"] - \
+        mem["alias_size_in_bytes"]
+    rules = cell.meta["rules"]
+    del cell
+
+    # 2. make_train_step on the same card, seed and batch.
+    model = LM(cfg, device=dev, seed=DIST["seed"])
+    opt = AdamW()
+    step = make_train_step(model, opt)
+    params = dict(model.named_parameters())
+    params, ostate, met = step(params, opt.init(params), lm_batch(dcfg, 0))
+    sync()
+    plain_loss = met["loss"].detach().cpu()
+    plain = {k: p.detach().cpu() for k, p in params.items()}
+    del model, step, params, ostate, met
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # 3. The distributed step: build_cell's parameters drawn on the card,
+    # the batch placed. The first step is held to make_train_step's; the
+    # second is counted by FlopCounterMode (under a dispatch mode some
+    # ops round differently, so the compared step runs without it); the
+    # third is timed.
+    cell = build_cell(DIST["arch"], "card_train", mesh, cfg=cfg,
+                      device=dev, seed=DIST["seed"], microbatches=1)
+    params, ostate, _ = cell.args
+
+    def placed(step: int) -> dict:
+        return {k: place(v.to(dev), mesh, cell.in_shardings[2][k])
+                for k, v in lm_batch(dcfg, step).items()}
+
+    params, ostate, met = cell.fn(params, ostate, placed(0))
+    sync()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+
+    def local(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t
+                ).detach().cpu()
+
+    dist_loss = local(met["loss"])
+    worst, unequal = 0.0, []
+    for k, ref in plain.items():
+        got = local(params[k])
+        if not torch.equal(got, ref):
+            unequal.append(k)
+            d = (got.double() - ref.double()).abs().max().item()
+            worst = max(worst, d / max(ref.double().abs().max().item(),
+                                       1e-30))
+    loss_equal = bool(torch.equal(dist_loss, plain_loss))
+    loss_rel = abs(dist_loss.double().item() - plain_loss.double().item()
+                   ) / abs(plain_loss.double().item())
+    with FlopCounterMode(display=False) as fc:
+        params, ostate, met = cell.fn(params, ostate, placed(1))
+    sync()
+    counted = float(fc.get_total_flops())
+    batch2 = placed(2)
+    t0 = time.perf_counter()
+    params, ostate, met = cell.fn(params, ostate, batch2)
+    sync()
+    step_s = time.perf_counter() - t0
+    del cell, params, ostate, met, batch2, plain
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 4. compressed_psum_mean over the one-rank group on one layer's
+    # gradients (shapes of decoder layer 0), against the CPU's over a
+    # gloo group.
+    gen = torch.Generator().manual_seed(DIST["seed"] + 1)
+    layer0 = {k[len("decoder.0."):]: v for k, v in
+              LM(cfg, device="meta").abstract_params().items()
+              if k.startswith("decoder.0.")}
+    grads_cpu = {k: torch.randn(v.shape, generator=gen) * 1e-3
+                 for k, v in layer0.items()}
+    grads = {k: v.to(dev) for k, v in grads_cpu.items()}
+    t0 = time.perf_counter()
+    synced, ef = compressed_psum_mean(grads, init_ef(grads))
+    synced2, ef2 = compressed_psum_mean(grads, ef)
+    sync()
+    compress_s = time.perf_counter() - t0
+    cpu_group = dist.new_group(backend="gloo")
+    s_cpu, e_cpu = compressed_psum_mean(grads_cpu, init_ef(grads_cpu),
+                                        group=cpu_group)
+    s2_cpu, e2_cpu = compressed_psum_mean(grads_cpu, e_cpu, group=cpu_group)
+    compress_unequal = [
+        f"{what}:{k}" for what, a, b in (("synced", synced, s_cpu),
+                                         ("ef", ef, e_cpu),
+                                         ("synced2", synced2, s2_cpu),
+                                         ("ef2", ef2, e2_cpu))
+        for k in a if not torch.equal(a[k].cpu(), b[k])]
+    n_grad = sum(v.numel() for v in grads_cpu.values())
+    dist.destroy_process_group()
+
+    res = {
+        "mesh": [1, 1], "backend": backend, "arch": DIST["arch"],
+        "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+        "batch": DIST["card_batch"], "seq": seq, "rules": rules,
+        "predict_s": predict_s,
+        "predicted_bytes": pred_bytes, "predicted_memory": mem,
+        "predicted_dot_flops": pred.dot_flops,
+        "predicted_collective_bytes": pred.total_collective_bytes,
+        "counted_dot_flops": counted,
+        "flops_rel_diff": abs(pred.dot_flops - counted) / counted,
+        "flops_tol": DIST_FLOPS_TOL,
+        "max_memory_allocated": peak,
+        "predicted_over_measured_bytes":
+            pred_bytes / peak if peak else None,
+        "loss_plain": plain_loss.item(), "loss_dist": dist_loss.item(),
+        "loss_bit_equal": loss_equal, "loss_rel_diff": loss_rel,
+        "params_unequal": len(unequal), "params_rel_max": worst,
+        "params_unequal_names": unequal[:8],
+        "step_rtol": DIST_STEP_RTOL,
+        "step_s": step_s,
+        "roofline_compute_s": pred.dot_flops / PEAK_FLOPS,
+        "compute_term_over_step": pred.dot_flops / PEAK_FLOPS / step_s,
+        "compress": {"leaves": len(grads_cpu), "elements": n_grad,
+                     "seconds": compress_s,
+                     "bit_equal_to_cpu": not compress_unequal,
+                     "unequal": compress_unequal[:8]},
+        "wall_s": time.perf_counter() - t_phase}
+    if not res["flops_rel_diff"] <= DIST_FLOPS_TOL:
+        raise AssertionError(f"dist card: predicted {pred.dot_flops} vs "
+                             f"counted {counted} dot FLOPs")
+    if not (loss_rel <= DIST_STEP_RTOL and worst <= DIST_STEP_RTOL):
+        raise AssertionError(f"dist card: the 1x1 step differs from "
+                             f"make_train_step (loss {loss_rel}, "
+                             f"{len(unequal)} parameters, {worst})")
+    if compress_unequal:
+        raise AssertionError(f"dist compress: card != cpu in "
+                             f"{compress_unequal[:8]}")
+    return res
+
+
+def phase_dist() -> dict:
+    """Each part of the dist phase in a process of its own
+    (``chip_smoke.py --dist PART``, its result as its last line); one
+    ``dist`` line each. The dry run's process sees no card."""
+    out = {}
+    for part in ("dryrun", "card"):
+        env = dict(os.environ)
+        if part == "dryrun":
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--dist", part],
+            capture_output=True, text=True, timeout=DIST_TIMEOUT_S,
+            cwd=ROOT, env=env)
+        if proc.returncode != 0:
+            raise AssertionError(f"dist {part}: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-6000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        res["process_s"] = time.perf_counter() - t0
+        emit("dist", part=part, **res)
+        out[part] = res
+    return out
+
+
+def dist_main(part: str) -> int:
+    """The child of phase_dist: one part, its result as one JSON line."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if part == "dryrun":
+        res = dist_dryrun()
+    else:
+        from repro_torch.device import resolve_device
+        res = dist_card(resolve_device())
+    print(json.dumps(res), flush=True)
+    return 0
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels.flash_attention import kernel as fa_k
@@ -2377,6 +2685,8 @@ def main() -> int:
     families = phase_families()
     train = phase_train(dev)
     emit("train", **train)
+    torch.cuda.empty_cache()
+    phase_dist()
     launches = {**main_path["launches"], **onehot_path["launches"],
                 **serve["launches"]}
 
@@ -2445,4 +2755,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--family":
         sys.exit(family_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist":
+        sys.exit(dist_main(sys.argv[2]))
     sys.exit(main())

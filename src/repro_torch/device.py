@@ -16,9 +16,11 @@ import torch
 
 def resolve_device(device: "str | torch.device | None" = None
                    ) -> torch.device:
-    """The device to run on; raises if CUDA is asked for and absent."""
+    """The device to run on; raises if CUDA is asked for and absent.
+    ``"meta"`` (shapes and dtypes, no storage: what the dry run builds
+    on) is taken when the caller asks for it."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

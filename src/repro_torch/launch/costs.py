@@ -17,12 +17,15 @@ Sources per term (all per GPU = per partition):
   collective per-GPU collective operand bytes over the per-direction
              NVLink rate.
 
-The reference fills the flop, collective and memory inputs from an HLO
-analyzer of its compiled program; the port's counterpart, which counts
-them from the torch program, is ROADMAP Queue 1 item 9. The
-:class:`Roofline` fields and ``to_dict`` keys are the reference's,
-``collective_s_tpu`` (its f32->bf16-adjusted collective term) included,
-until that analyzer lands.
+The flop, collective and memory inputs come from ``launch/hlo.py``,
+which counts them from the torch program run once on DTensors of meta
+shards (``launch/dryrun.py``), as the reference's come from an analyzer
+of its compiled HLO. The :class:`Roofline` fields and ``to_dict`` keys
+are the reference's. ``collective_s_tpu`` (its f32->bf16-adjusted
+collective term) equals ``collective_s`` in the port: nothing is
+upcast, so ``collective_bytes_f32`` is 0. Every collective is priced at
+NVLink's rate; a 16-wide axis spans two 8-GPU nodes, so the term is a
+lower bound (the records also carry the bytes by mesh axis).
 
 MODEL_FLOPS (analytic): 6*N*D for dense training (N = active params,
 D = tokens), 2*N*D for single-pass inference, plus the attention

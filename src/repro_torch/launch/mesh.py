@@ -1,0 +1,40 @@
+"""Production meshes, as DeviceMeshes.
+
+Port of ``repro/launch/mesh.py``. Defined as functions, so importing
+this module touches no process-group state. A mesh needs a default
+process group of (at least) its size: NCCL or gloo across processes on
+a cluster, or, for the dry run, PyTorch's ``fake`` backend in one
+process (:func:`init_fake_group`), where collectives are shapes only.
+"""
+from __future__ import annotations
+
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def init_fake_group(world_size: int) -> None:
+    """A default process group of ``world_size`` ranks on the ``fake``
+    backend, this process rank 0 (none may exist yet)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cpu") -> DeviceMesh:
+    """16x16 = 256 GPUs per pod; 2 pods = 512 GPUs multi-pod. Needs a
+    default group of that size."""
+    shape, axes = PRODUCTION[multi_pod]
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_local_mesh(n_data: int = 1, n_model: int = 1,
+                    device_type: str = "cpu") -> DeviceMesh:
+    """A small (data, model) mesh over the default group's first
+    ``n_data * n_model`` ranks (tests, the one-GPU cell)."""
+    return init_device_mesh(device_type, (n_data, n_model),
+                            mesh_dim_names=("data", "model"))

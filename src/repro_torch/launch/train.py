@@ -3,6 +3,8 @@
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --steps 100 [--device cpu] [--ckpt-dir DIR]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-32b \\
+      --dry-run [--shape train_4k] [--multi-pod] [--reduced --mesh 2x4]
 
 Port of the reference's real-run mode (``repro/launch/train.py``):
 reduced config, packed synthetic data, AdamW under warmup_cosine(3e-3,
@@ -11,9 +13,10 @@ accounting. It prints every step's loss (the reference prints every
 tenth). Parameters are drawn from seed 0 on ``--device``, the card
 unless ``cpu`` is given. Without ``--ckpt-dir`` the checkpoints go to a
 temporary directory, removed at exit. The dense configs only (the
-other families wait for ROADMAP Queue 1 item 11);
-``--dry-run`` (compile the full config on a production mesh) waits for
-the distribution layer (ROADMAP Queue 1 item 9).
+other families wait for ROADMAP Queue 1 item 11). ``--dry-run`` runs the
+train cell of the full config on a production mesh instead
+(``launch/dryrun.py``: one step over a fake process group, counted,
+nothing allocated); ``--reduced`` and ``--mesh`` shrink it.
 """
 from __future__ import annotations
 
@@ -25,6 +28,13 @@ def main(argv: list[str] | None = None) -> list[dict]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--shape", default="train_4k",
+                    help="the dry run's cell")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the dry run at the arch's reduced config")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="the dry run on a (data, model) mesh")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -34,9 +44,12 @@ def main(argv: list[str] | None = None) -> list[dict]:
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run waits for the distribution layer (ROADMAP Queue 1 "
-            "item 9)")
+        from repro_torch.launch import dryrun
+
+        cmd = ["--arch", args.arch, "--shape", args.shape, "--force"]
+        cmd += ["--multi-pod"] * args.multi_pod + ["--reduced"] * \
+            args.reduced + (["--mesh", args.mesh] if args.mesh else [])
+        return dryrun.main(cmd)
 
     from repro_torch.checkpoint.store import CheckpointStore
     from repro_torch.configs import get_reduced

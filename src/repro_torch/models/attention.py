@@ -22,9 +22,14 @@ h // g.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import constrain, unshard_grad
 from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rope
@@ -96,7 +101,9 @@ def repeat_kv(cfg: ModelConfig, kv: torch.Tensor) -> torch.Tensor:
     r = k // cfg.n_kv_heads
     if r == 1:
         return kv
-    return kv.repeat_interleave(r, dim=2)     # stored head t is t // r
+    # stored head t is t // r; on a mesh the backward's sum over the r
+    # copies needs the stored-head dimension whole.
+    return unshard_grad(kv.repeat_interleave(r, dim=2), 2)
 
 
 def project_qkv(p, xq: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig):
@@ -116,7 +123,11 @@ def out_proj(p, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if hm is not None:
         # Zero padding heads: exact n_heads semantics.
         o = o * hm[None, None, :, None].to(o.dtype)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    # On a mesh the heads' partial sums are reduced here, into the
+    # residual stream's placement (XLA does so unasked; DTensor would
+    # carry the Partial into the residual).
+    return constrain(torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype)),
+                     ("batch", "seq", "d_model"))
 
 
 def q_scale(dh: int, dtype: torch.dtype) -> float:
@@ -128,6 +139,27 @@ def q_scale(dh: int, dtype: torch.dtype) -> float:
     the product. The kernel, the streaming softmax and decode all do
     that."""
     return float(torch.tensor(dh ** -0.5, dtype=dtype))
+
+
+def on_shards(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              *rest) -> torch.Tensor:
+    """``fn(q, k, v, *rest)``; on a mesh, run on each device's shards of
+    batch and heads (``shd.run_local``, the reference's ``shard_map``):
+    the attention of one (sequence, stored head) needs no other's, and q
+    head h reads stored head h // g, so q's heads and k's and v's stored
+    heads shard alike. Inside, on plain local tensors, the model's
+    constraints do nothing. Off a mesh (or on plain tensors) ``fn`` runs
+    as it is. Without this DTensor would flatten batch and heads, both
+    sharded, into one batch dimension of each product, which torch 2.11
+    refuses."""
+    if shd.current() is None or not isinstance(q, DTensor):
+        return fn(q, k, v, *rest)
+    q = constrain(q, ("batch", None, "heads", None))
+    k = constrain(k, ("batch", None, "kv_stored", None))
+    v = constrain(v, ("batch", None, "kv_stored", None))
+    if q.placements != k.placements:        # heads shard unlike kv heads
+        q, k, v = (shd.gather_dim(x, 2) for x in (q, k, v))
+    return shd.run_local(fn, (q, k, v), rest, out_like=q)
 
 
 def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -144,16 +176,29 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     width (after repeat_kv) and Hq = g_p * K.
     q_positions: (Sq,), kv_positions: (T,), kv_valid: (T,) bool.
     q is scaled as :func:`q_scale` says. The last block is short where
-    the reference pads it with invalid keys: the same sums.
+    the reference pads it with invalid keys: the same sums. On a mesh
+    each device attends over its own shards (:func:`on_shards`).
     """
+    return on_shards(functools.partial(
+        _streaming, causal=causal, window=window, block_k=block_k,
+        softcap=softcap), q, k, v, q_positions, kv_positions, kv_valid)
+
+
+def _streaming(q, k, v, q_positions, kv_positions, kv_valid, *, causal,
+               window, block_k, softcap):
     b, sq, hq, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
+    ha = "kv_stored"
     qh = (q.float() * q_scale(dh, q.dtype)).reshape(b, sq, hkv, g, dh)
     qh = qh.permute(0, 2, 3, 1, 4)                 # (B,K,G,Sq,Dh)
-    m = torch.full((b, hkv, g, sq), NEG_INF, device=q.device)
-    l = torch.zeros((b, hkv, g, sq), device=q.device)
-    acc = torch.zeros((b, hkv, g, sq, dh), device=q.device)
+    qh = constrain(qh, ("batch", ha, None, None, None))
+    k = constrain(k, ("batch", None, ha, None))
+    v = constrain(v, ("batch", None, ha, None))
+    m = constrain(torch.full_like(qh[..., 0], NEG_INF),
+                  ("batch", ha, None, None))
+    l = constrain(torch.zeros_like(qh[..., 0]), ("batch", ha, None, None))
+    acc = constrain(torch.zeros_like(qh), ("batch", ha, None, None, None))
     # Nested remat, as the reference's: under autograd each block's
     # scores are recomputed in the backward pass, not saved.
     remat = torch.is_grad_enabled()
@@ -190,7 +235,10 @@ def _kv_block(m, l, acc, qh, k, v, kp, kval, q_positions, causal, window,
     corr = torch.exp(m - m_new)
     l = l * corr + pr.sum(dim=-1)
     acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", pr, vv)
-    return m_new, l, acc
+    ha = "kv_stored"
+    return (constrain(m_new, ("batch", ha, None, None)),
+            constrain(l, ("batch", ha, None, None)),
+            constrain(acc, ("batch", ha, None, None, None)))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -250,8 +298,10 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig,
             torch.arange(x.shape[1], device=x.device)
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
+        q = constrain(q, ("batch", "seq", "heads", "head_dim"))
         o = self_attention(q, repeat_kv(cfg, k), repeat_kv(cfg, v), cfg,
                            positions, causal=causal, attention=attention)
+        o = constrain(o, ("batch", "seq", "heads", "head_dim"))
         return out_proj(p, o, cfg)
     q, k, v = project_qkv(p, x, memory, cfg)
     t = memory.shape[1]
@@ -259,11 +309,13 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig,
         torch.ones(t, dtype=torch.bool, device=x.device)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
+    q = constrain(q, ("batch", "seq", "heads", "head_dim"))
     o = streaming_attention(
         q, repeat_kv(cfg, k), repeat_kv(cfg, v), positions,
         torch.arange(t, device=x.device), kv_val, causal=False,
         window=cfg.attn_window, block_k=block_k,
         softcap=cfg.attn_logit_softcap)
+    o = constrain(o, ("batch", "seq", "heads", "head_dim"))
     return out_proj(p, o, cfg)
 
 
@@ -272,11 +324,19 @@ def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, window: int | None,
                       softcap: float | None) -> torch.Tensor:
     """Direct masked softmax for Sq == 1: the scores are only (B, Hq, T)
-    float32."""
+    float32. On a mesh each device attends over its own shards
+    (:func:`on_shards`)."""
+    return on_shards(functools.partial(
+        _decode_core, pos=pos, window=window, softcap=softcap),
+        q, k, v, kv_pos)
+
+
+def _decode_core(q, k, v, kv_pos, *, pos, window, softcap):
     b, _, hq, dh = q.shape
     kk = k.shape[2]
     g = hq // kk
     qh = q[:, 0].reshape(b, kk, g, dh).float() * q_scale(dh, q.dtype)
+    qh = constrain(qh, ("batch", "kv_stored", None, None))
     s = torch.einsum("bkgd,btkd->bkgt", qh, k.float())
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)

@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import rwkv6 as rwk
@@ -106,30 +107,47 @@ def block_forward(p, x: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
     return _mlp_part(p, x, cfg, desc)
 
 
+#: Logical axes of each cache entry (the reference's ``cache_axes``
+#: without its stacked "layers" axis).
+CACHE_AXES = {
+    "k": ("batch", "kv_seq", "kv_stored", "head_dim"),
+    "v": ("batch", "kv_seq", "kv_stored", "head_dim"),
+    "ck": ("batch", "kv_seq", "kv_stored", "head_dim"),
+    "cv": ("batch", "kv_seq", "kv_stored", "head_dim"),
+    "conv": ("batch", None, "d_inner"),
+    "h": ("batch", "d_inner", None),
+    "shift": ("batch", "d_model"),
+    "s": ("batch", "heads", "head_dim", None),
+}
+
+
 def init_cache(cfg: ModelConfig, desc: LayerDesc, batch: int, t_max: int,
                n_memory: int, dtype: torch.dtype,
                device: torch.device) -> dict:
-    """A zeroed cache entry for one layer."""
+    """A zeroed cache entry for one layer (on a mesh, inside an
+    ``activation_sharding`` context, each entry is a DTensor placed by
+    :data:`CACHE_AXES`, holding only its local shard)."""
     d, dh = cfg.d_model, cfg.head_dim
     hkv = cfg.head_layout()[0]   # stored-KV width (duplicated heads)
 
-    def zeros(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
+    def zeros(key, *shape, dt=dtype):
+        return shd.zeros(shape, CACHE_AXES[key], dtype=dt, device=device)
 
     if desc.kind == "attn":
-        c = {"k": zeros(batch, t_max, hkv, dh),
-             "v": zeros(batch, t_max, hkv, dh)}
+        c = {"k": zeros("k", batch, t_max, hkv, dh),
+             "v": zeros("v", batch, t_max, hkv, dh)}
     elif desc.kind == "mamba":
         di = cfg.mamba_expand * d
-        c = {"conv": zeros(batch, cfg.mamba_d_conv - 1, di),
-             "h": zeros(batch, di, cfg.mamba_d_state, dt=torch.float32)}
+        c = {"conv": zeros("conv", batch, cfg.mamba_d_conv - 1, di),
+             "h": zeros("h", batch, di, cfg.mamba_d_state,
+                        dt=torch.float32)}
     else:
         n = cfg.rwkv_head_dim
-        c = {"shift": zeros(batch, d),
-             "s": zeros(batch, d // n, n, n, dt=torch.float32)}
+        c = {"shift": zeros("shift", batch, d),
+             "s": zeros("s", batch, d // n, n, n, dt=torch.float32)}
     if desc.cross:
-        c["ck"] = zeros(batch, n_memory, hkv, dh)
-        c["cv"] = zeros(batch, n_memory, hkv, dh)
+        c["ck"] = zeros("ck", batch, n_memory, hkv, dh)
+        c["cv"] = zeros("cv", batch, n_memory, hkv, dh)
     return c
 
 

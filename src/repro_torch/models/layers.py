@@ -2,14 +2,16 @@
 
 Plain functions on tensors, as in the reference (``repro/models/
 layers.py``); ``p`` is a dict of tensors or a :class:`~.params.Params`.
-The reference's ``constrain`` calls place activations on a mesh and are
-no-ops without one; the port has no mesh yet and leaves them out.
+The reference's ``constrain`` calls stand where it puts them: they place
+activations on a mesh inside an ``activation_sharding`` context and
+return their input unchanged outside one.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Spec
 
@@ -61,9 +63,14 @@ def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     }
 
 
-def mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
-    """The reference casts each weight to x's dtype at every call."""
+def mlp(p, x: torch.Tensor, kind: str,
+        lead: tuple = ("batch", "seq")) -> torch.Tensor:
+    """The reference casts each weight to x's dtype at every call.
+    ``lead`` names x's leading dims for the constraints (the MoE experts'
+    batched call passes ("experts", None): the reference vmaps this
+    function over the experts)."""
     h = x @ p["wi"].to(x.dtype)
+    h = constrain(h, (*lead, "d_ff"))
     if kind == "swiglu":
         h = F.silu(x @ p["wg"].to(x.dtype)) * h
     elif kind == "geglu":
@@ -74,7 +81,7 @@ def mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
     else:
         raise ValueError(f"unknown mlp kind {kind!r}")
-    return h @ p["wo"].to(x.dtype)
+    return constrain(h @ p["wo"].to(x.dtype), (*lead, "d_model"))
 
 
 # -- embeddings ----------------------------------------------------------------
@@ -92,11 +99,16 @@ def embed_specs(cfg: ModelConfig) -> dict:
 
 def embed_tokens(p, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Gather the rows, then cast: the reference casts the whole table
-    first (the same values; at qwen2.5-32b a 1.57 GB copy per call)."""
-    return p["tokens"][tokens].to(dtype)
+    first (the same values; at qwen2.5-32b a 1.57 GB copy per call). The
+    gather is ``F.embedding``, which DTensor runs on a vocab-sharded
+    table (each rank looks up its rows, a masked partial sum)."""
+    return constrain(F.embedding(tokens, p["tokens"]).to(dtype),
+                     ("batch", "seq", "d_model"))
 
 
 def logits_out(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ p["tokens"].to(x.dtype).T
-    return x @ p["lm_head"].to(x.dtype)
+        out = x @ p["tokens"].to(x.dtype).T
+    else:
+        out = x @ p["lm_head"].to(x.dtype)
+    return constrain(out, ("batch", "seq", "vocab"))

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Spec
 
@@ -82,6 +83,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig,
     dt_ = x.dtype
     xz = x @ p["in_proj"].to(dt_)
     xp, z = xz.chunk(2, dim=-1)
+    xp = constrain(xp, ("batch", "seq", "d_inner"))
+    z = constrain(z, ("batch", "seq", "d_inner"))
     xp, conv_state = _conv(p, xp, conv_state)
 
     dbc = xp @ p["x_proj"].to(dt_)
@@ -100,7 +103,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig,
     y = torch.stack(ys, dim=1).to(dt_)                      # (B,S,di)
     y = y + xp * p["d_skip"].to(dt_)
     y = y * F.silu(z)
-    return y @ p["out_proj"].to(dt_), (conv_state, h)
+    out = constrain(y @ p["out_proj"].to(dt_), ("batch", "seq", "d_model"))
+    return out, (conv_state, h)
 
 
 def mamba_decode(p, x: torch.Tensor, cfg: ModelConfig,

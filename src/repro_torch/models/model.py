@@ -22,6 +22,7 @@ sequence, whose positions the logits leave out.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -29,6 +30,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as shd
 from repro_torch.models import params as prm
 from repro_torch.models.blocks import (LayerDesc, block_decode,
                                        block_forward, block_prefill,
@@ -82,11 +84,44 @@ def dtype_of(name: str) -> torch.dtype:
     return dt
 
 
+def _serving(fn):
+    """Run ``fn`` under ``torch.inference_mode()``; on a mesh (inside an
+    ``activation_sharding`` context) under ``torch.no_grad()`` instead:
+    there DTensor propagates the shardings of composite ops by tracing
+    them on meta tensors at the global shapes, which a counting dispatch
+    mode (``launch/hlo.py``) cannot tell from the program's own ops."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        mode = torch.no_grad() if shd.current() is not None else \
+            torch.inference_mode()
+        with mode:
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def _gold(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """lf[..., labels]: the logit of each label. On a mesh the vocab
+    dimension is sharded and DTensor cannot gather along it, so there it
+    is a sum of the logits under a one-hot mask of the local columns
+    (a Partial sum, one small all-reduce): the same value, since every
+    other term is an exact zero."""
+    if shd.current() is None:
+        return torch.gather(lf, -1, labels[..., None])[..., 0]
+    cols = torch.arange(lf.shape[-1], device=labels.device)
+    return (lf * (cols == labels[..., None])).sum(-1)
+
+
 class LM(nn.Module):
     """Decoder LM; also hosts the enc-dec (whisper) and VLM variants.
     ``device=None`` means CUDA (raises without a card); parameters are
     drawn there from ``generator`` (a generator on that device seeded
     with ``seed`` when none is given), in the reference's spec order."""
+
+    #: On a mesh, maps a layer's parameters (a ``Params``, or one
+    #: tensor) to what the layer computes with: under FSDP each gathered
+    #: over the data axes (``train.step.jit_train_step`` sets it). None:
+    #: the parameters as they are.
+    param_gather = None
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: torch.Generator | None = None, seed: int = 0):
@@ -116,6 +151,8 @@ class LM(nn.Module):
                 self.register_parameter(name, nn.Parameter(
                     torch.empty(self.cfg.d_model, device=dev, dtype=pdt),
                     requires_grad=False))
+        if dev.type == "meta":
+            return              # shapes only: nothing to draw
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(seed)
         prm.init(self, specs, generator)
@@ -161,6 +198,21 @@ class LM(nn.Module):
             out["enc_norm"] = norm_spec(cfg.d_model)
         return out
 
+    def param_axes(self) -> dict:
+        """Logical axes of every parameter, keyed as
+        ``named_parameters()`` names them (the reference's stacked
+        ``"layers"`` axis unstacked: one entry per layer)."""
+        return {path: s.axes
+                for path, s in prm.leaves(self.layer_specs())}
+
+    def abstract_params(self) -> dict:
+        """Every parameter as a meta tensor of its shape and dtype
+        (nothing allocated, nothing drawn), keyed as
+        :meth:`param_axes`."""
+        pdt = dtype_of(self.cfg.param_dtype)
+        return {path: torch.empty(s.shape, dtype=pdt, device="meta")
+                for path, s in prm.leaves(self.layer_specs())}
+
     def n_params(self) -> int:
         return prm.count(self.specs())
 
@@ -179,24 +231,34 @@ class LM(nn.Module):
             kw = dict(memory=memory, rwkv_chunk=rwkv_chunk,
                       attention=attention)
             if remat:
-                x, a = checkpoint(block_forward, p, x, cfg, desc, None,
+                x, a = checkpoint(self._block, p, x, desc,
                                   use_reentrant=False, **kw)
             else:
-                x, a = block_forward(p, x, cfg, desc, None, **kw)
+                x, a = self._block(p, x, desc, **kw)
             aux = aux + a
         return x, aux
+
+    def _block(self, p, x: torch.Tensor, desc: LayerDesc, **kw):
+        return block_forward(self._p(p), x, self.cfg, desc, None, **kw)
+
+    def _p(self, p):
+        """What a layer computes with: ``p`` itself, or on a mesh what
+        :attr:`param_gather` makes of it. Inside a checkpointed layer,
+        so a rematerialised forward gathers again (FSDP's
+        reshard-after-forward)."""
+        return p if self.param_gather is None else self.param_gather(p)
 
     def _frontend(self, frontend: torch.Tensor | None) -> torch.Tensor:
         if frontend is None:
             raise ValueError(f"{self.cfg.name}: the {self.cfg.family} "
                              "family needs frontend= embeddings")
         return frontend.to(self.device, self.dtype) @ \
-            self.embed["frontend_proj"].to(self.dtype)
+            self._p(self.embed)["frontend_proj"].to(self.dtype)
 
     def _embed_inputs(self, tokens: torch.Tensor,
                       frontend: torch.Tensor | None):
         """(x, n_front): the tokens' embeddings, behind the VLM prefix."""
-        x = embed_tokens(self.embed, tokens, self.dtype)
+        x = embed_tokens(self._p(self.embed), tokens, self.dtype)
         if self.cfg.family != "vlm":
             return x, 0
         fe = self._frontend(frontend)
@@ -208,7 +270,7 @@ class LM(nn.Module):
         if self.enc_stage is None:
             return None
         x, _ = self._run_stage(self.enc_stage, self._frontend(frontend))
-        return rmsnorm(x, self.enc_norm, self.cfg.rms_eps)
+        return rmsnorm(x, self._p(self.enc_norm), self.cfg.rms_eps)
 
     # -- forward -------------------------------------------------------------
     def forward(self, tokens: torch.Tensor, *,
@@ -236,8 +298,9 @@ class LM(nn.Module):
         x, n_front = self._embed_inputs(tokens, frontend)
         x, aux = self._run_stage(self.stages[0], x, memory=memory,
                                  rwkv_chunk=rwkv_chunk, attention=attention)
-        x = rmsnorm(x[:, n_front:], self.final_norm, self.cfg.rms_eps)
-        return logits_out(self.embed, x, self.cfg), aux
+        x = rmsnorm(x[:, n_front:], self._p(self.final_norm),
+                    self.cfg.rms_eps)
+        return logits_out(self._p(self.embed), x, self.cfg), aux
 
     def loss(self, batch: dict, *, attention: str = "flash",
              rwkv_chunk: int | None = None):
@@ -253,7 +316,7 @@ class LM(nn.Module):
             rwkv_chunk=rwkv_chunk)
         lf = logits.float()
         lse = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, labels.clamp_min(0)[..., None])[..., 0]
+        gold = _gold(lf, labels.clamp_min(0))
         mask = (labels >= 0).float()
         n = mask.sum().clamp_min(1.0)
         ce = ((lse - gold) * mask).sum() / n
@@ -268,7 +331,7 @@ class LM(nn.Module):
         return [init_cache(self.cfg, d, batch, t_max, n_memory, self.dtype,
                            self.device) for d in self.descs]
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, tokens: torch.Tensor, t_max: int, *,
                 frontend: torch.Tensor | None = None,
                 attention: str = "flash", rwkv_chunk: int | None = None):
@@ -288,7 +351,7 @@ class LM(nn.Module):
         x = rmsnorm(x[:, -1:], self.final_norm, cfg.rms_eps)
         return logits_out(self.embed, x, cfg), caches
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, tokens: torch.Tensor, pos: int,
                     caches: list[dict]):
         """One token for every sequence. tokens: (B, 1); pos: the new

@@ -17,14 +17,15 @@ Routing: float32 softmax over the expert logits, top-k, renormalised
 weights, and the Switch load-balancing loss. Among equal probabilities
 the lower expert comes first, as ``jax.lax.top_k`` orders them: a
 stable descending sort, since ``torch.topk`` promises no order among
-ties. The reference's ``constrain`` calls are dropped, as elsewhere in
-the port.
+ties. The reference's ``constrain`` calls stand where it puts them
+(no-ops off a mesh).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain
 from repro_torch.models.config import ModelConfig, MoeConfig
 from repro_torch.models.layers import mlp, mlp_specs
 from repro_torch.models.params import Spec, stack_specs
@@ -95,8 +96,9 @@ def _moe_experts(p, xe: torch.Tensor, kind: str) -> torch.Tensor:
     batched product per stacked matrix, experts leading."""
     b, e, c, d = xe.shape
     xe_t = xe.transpose(0, 1).reshape(e, b * c, d)          # (E,B*C,d)
-    ye = mlp(p["experts"], xe_t, kind)
-    return ye.reshape(e, b, c, d).transpose(0, 1)
+    ye = mlp(p["experts"], xe_t, kind, lead=("experts", None))
+    ye = ye.reshape(e, b, c, d).transpose(0, 1)
+    return constrain(ye, ("batch", "experts", None, "d_model"))
 
 
 def _dispatch_einsum(p, x: torch.Tensor, top_w, top_e, mc: MoeConfig,
@@ -111,6 +113,7 @@ def _dispatch_einsum(p, x: torch.Tensor, top_w, top_e, mc: MoeConfig,
     comb = torch.einsum("bske,bskc,bsk->bsec", oh_e, oh_c,
                         top_w.to(x.dtype))
     xe = torch.einsum("bsec,bsd->becd", disp, x)
+    xe = constrain(xe, ("batch", "experts", None, "d_model"))
     ye = _moe_experts(p, xe, kind)
     return torch.einsum("bsec,becd->bsd", comb, ye)
 
@@ -134,7 +137,9 @@ def _dispatch_gather(p, x: torch.Tensor, top_w, top_e, mc: MoeConfig,
         1, flat_slot, flat_slot < e * c)[:, :e * c]
     xe = torch.gather(x, 1, token_of_slot[..., None].expand(-1, -1, d))
     xe = torch.where(filled[..., None], xe, 0.0)            # (B,E*C,d)
-    ye = _moe_experts(p, xe.reshape(b, e, c, d), kind).reshape(b, e * c, d)
+    xe = constrain(xe.reshape(b, e, c, d),
+                   ("batch", "experts", None, "d_model"))
+    ye = _moe_experts(p, xe, kind).reshape(b, e * c, d)
     w_of_slot = torch.zeros((b, e * c + 1), dtype=top_w.dtype,
                             device=x.device).scatter_(
         1, flat_slot, top_w.reshape(b, s * k))[:, :e * c]

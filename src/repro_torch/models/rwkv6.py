@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain, unflatten
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Spec
 
@@ -60,14 +61,20 @@ def _projections(p, x: torch.Tensor, x_shift: torch.Tensor,
     n = cfg.rwkv_head_dim
     h = cfg.d_model // n
     b, s, _ = x.shape
-    r = (xr @ p["wr"].to(dt)).reshape(b, s, h, n)
-    k = (xk @ p["wk"].to(dt)).reshape(b, s, h, n)
-    v = (xv @ p["wv"].to(dt)).reshape(b, s, h, n)
-    g = F.silu(xg @ p["wg"].to(dt))
+    def cst(a):
+        return constrain(a, ("batch", "seq", "heads_x_dim"))
+
+    def heads(a):
+        return unflatten(a, 2, (h, n))
+
+    r = heads(cst(xr @ p["wr"].to(dt)))
+    k = heads(cst(xk @ p["wk"].to(dt)))
+    v = heads(cst(xv @ p["wv"].to(dt)))
+    g = F.silu(cst(xg @ p["wg"].to(dt)))
     # Data-dependent decay (the RWKV-6 contribution).
     lora = torch.tanh(xw @ p["w_lora_a"].to(dt)) @ p["w_lora_b"].to(dt)
-    w = torch.exp(-torch.exp((p["w0"].float() + lora.float())
-                             .clamp(-8.0, 4.0))).reshape(b, s, h, n)
+    w = heads(torch.exp(-torch.exp((p["w0"].float() + lora.float())
+                                   .clamp(-8.0, 4.0))))
     return r, k, v, g, w
 
 

@@ -23,6 +23,7 @@ import math
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def warmup_cosine(peak_lr: float, warmup_steps: int, total_steps: int,
@@ -52,9 +53,8 @@ class AdamW:
     master_weights: bool = False
 
     def init(self, params: dict) -> dict:
-        def zeros():
-            return {k: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
+        def zeros():     # a DTensor parameter's moments share its placements
+            return {k: torch.zeros_like(p, dtype=torch.float32)
                     for k, p in params.items()}
         dev = next(iter(params.values())).device
         state = {"mu": zeros(), "nu": zeros(),
@@ -77,12 +77,12 @@ class AdamW:
         return torch.clamp(self.grad_clip_norm / gnorm.clamp_min(1e-9),
                            max=1.0)
 
-    def _moments(self, name: str, g: torch.Tensor, scale, mu: dict,
-                 nu: dict) -> None:
+    def _moments(self, g: torch.Tensor, scale, mu: torch.Tensor,
+                 nu: torch.Tensor) -> None:
         """mu, nu of one parameter, in place."""
         g = g.float() if scale is None else g.float() * scale
-        mu[name].mul_(self.b1).add_(g, alpha=1 - self.b1)
-        nu[name].mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
+        mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
+        nu.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
 
     def _update(self, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                 bc1, bc2, lr) -> torch.Tensor:
@@ -107,7 +107,7 @@ class AdamW:
         anchor = state.get("master", params)
         updates = {}
         for k, g in grads.items():
-            self._moments(k, g, scale, mu, nu)
+            self._moments(g, scale, mu[k], nu[k])
             updates[k] = self._update(anchor[k], mu[k], nu[k], bc1, bc2,
                                       lr).to(anchor[k].dtype)
         new_state = {"mu": mu, "nu": nu, "count": count}
@@ -121,13 +121,18 @@ class AdamW:
         """Updates ``params`` and ``state`` in place, one parameter at a
         time, and returns them."""
         count, scale, bc1, bc2, lr = self._begin(grads, state)
+        if isinstance(scale, DTensor):
+            scale = scale.full_tensor()
         master = state.get("master")
         for k, g in grads.items():
-            self._moments(k, g, scale, state["mu"], state["nu"])
-            p = params[k]
-            anchor = p if master is None else master[k]
-            u = self._update(anchor, state["mu"][k], state["nu"][k], bc1,
-                             bc2, lr)
+            # A DTensor parameter updates its local shard: the step is
+            # elementwise, and its gradient and moments share its
+            # placements.
+            p, mu, nu = (_local(t) for t in (
+                params[k], state["mu"][k], state["nu"][k]))
+            self._moments(_local(g, params[k]), scale, mu, nu)
+            anchor = p if master is None else _local(master[k])
+            u = self._update(anchor, mu, nu, bc1, bc2, lr)
             if master is None:
                 p.add_(u.to(p.dtype))
             else:
@@ -136,6 +141,16 @@ class AdamW:
             del u
         state["count"] = count
         return params, state
+
+
+def _local(t: torch.Tensor, like: torch.Tensor | None = None):
+    """A DTensor's local shard (first placed as ``like`` is, when
+    given); a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    if like is not None and tuple(t.placements) != tuple(like.placements):
+        t = t.redistribute(like.device_mesh, like.placements)
+    return t.to_local()
 
 
 def global_norm(tree: dict) -> torch.Tensor:

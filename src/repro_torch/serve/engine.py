@@ -4,16 +4,19 @@ Port of ``repro/serve/engine.py``. ``serve_step`` is one new token for
 the whole batch against the caches (keys and values, Mamba and RWKV
 states, cross-attention memories); :class:`Engine` drives prefill and
 then ``serve_step`` for greedy, position-aligned sequences (continuous
-batching is out of scope, as in the reference). Cache and parameter
-placements on a mesh (``cache_axes``, ``serve_shardings``) wait for the
-distribution layer (ROADMAP Queue 1 item 9).
+batching is out of scope, as in the reference). :func:`cache_axes` and
+:func:`serve_shardings` give the placements of the caches, parameters
+and tokens on a mesh.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Mapping
 
 import torch
 
+from repro_torch.dist import sharding as shd
+from repro_torch.models.blocks import CACHE_AXES, init_cache
 from repro_torch.models.model import LM
 
 
@@ -23,9 +26,39 @@ def make_serve_step(model: LM):
 
     def serve_step(caches, tokens, pos):
         logits, caches = model.decode_step(tokens, pos, caches)
-        return logits[:, -1].argmax(dim=-1)[:, None], logits, caches
+        # On a mesh the vocab is gathered first: DTensor's argmax over a
+        # sharded dimension fails for a batch that is not sharded.
+        last = shd.gather_dim(logits[:, -1], 1)
+        return last.argmax(dim=-1)[:, None], logits, caches
 
     return serve_step
+
+
+def abstract_caches(model: LM, batch: int, t_max: int,
+                    n_memory: int = 0) -> list[dict]:
+    """The decode caches as meta tensors (shapes and dtypes only)."""
+    return [init_cache(model.cfg, d, batch, t_max, n_memory, model.dtype,
+                       torch.device("meta")) for d in model.descs]
+
+
+def cache_axes(model: LM) -> list[dict]:
+    """Logical axes for the decode caches (mirrors ``init_caches``: one
+    dict per decoder layer, keyed as its cache entry)."""
+    return [{k: CACHE_AXES[k] for k in c}
+            for c in abstract_caches(model, 1, 8, n_memory=8)]
+
+
+def serve_shardings(model: LM, mesh, batch: int, t_max: int,
+                    n_memory: int = 0,
+                    rules: Mapping[str, Any] | None = None):
+    """(params, caches, tokens) placements on ``mesh``."""
+    p_sh = shd.tree_shardings(model.param_axes(), mesh, rules,
+                              model.abstract_params())
+    c_sh = shd.tree_shardings(cache_axes(model), mesh, rules,
+                              abstract_caches(model, batch, t_max,
+                                              n_memory))
+    tok_sh = shd.batch_spec(mesh, 1, rules, batch_size=batch)
+    return p_sh, c_sh, tok_sh
 
 
 @dataclasses.dataclass

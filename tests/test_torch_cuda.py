@@ -641,3 +641,44 @@ def test_three_train_steps_on_card(dev):
         losses.append(float(met["loss"]))
     assert all(np.isfinite(losses)) and losses[2] < losses[0], losses
     assert params["final_norm"].device.type == "cuda"
+
+
+# -- the distribution layer on one card ----------------------------------------
+
+DIST_CARD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[1] + "/src")
+import torch
+import chip_smoke as cs
+from repro_torch.configs import get_reduced
+res = cs.dist_card(torch.device("cuda"), backend="nccl",
+                   cfg=get_reduced("qwen2.5-32b"), seq=64)
+print(json.dumps(res))
+"""
+
+
+@pytest.fixture(scope="module")
+def dist_card_reduced():
+    """chip_smoke.py's dist card part at the reduced qwen config, in a
+    process of its own (it makes a one-rank NCCL default group)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import json
+    import subprocess
+
+    out = subprocess.run([sys.executable, "-c", DIST_CARD, REPO_ROOT],
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_one_by_one_mesh_train_step_equals_make_train_step(
+        dist_card_reduced):
+    res = dist_card_reduced
+    assert res["loss_bit_equal"] and res["params_unequal"] == 0
+    assert res["flops_rel_diff"] <= res["flops_tol"]
+
+
+def test_compressed_psum_mean_on_nccl_equals_the_cpu(dist_card_reduced):
+    assert dist_card_reduced["compress"]["bit_equal_to_cpu"]

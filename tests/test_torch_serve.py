@@ -5,11 +5,16 @@ package's tokens in float32 on the same weights for every architecture
 launcher runs every architecture with ``--device cpu`` and raises
 without a card otherwise."""
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -99,6 +104,13 @@ def test_launcher_raises_without_a_card(monkeypatch):
         LM(get_reduced("qwen2.5-32b"))
 
 
-def test_launcher_dry_run_waits_for_the_distribution_layer():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        launch_serve.main(["--arch", "qwen2.5-32b", "--dry-run"])
+def test_launcher_dry_run_waits_for_the_distribution_layer(tmp_path):
+    # Item 9 is ported: --dry-run runs the decode cell's dry run, here at
+    # the reduced config on a 2x4 mesh over a fake process group.
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen2.5-32b", "--dry-run", "--reduced", "--mesh", "2x4"],
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[OK] local2x4 qwen2.5-32b x decode_32k:" in out.stdout

@@ -181,5 +181,8 @@ def test_entry_points_raise_without_cuda(problem, monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+    # The dry run builds on the meta device when it asks for it; a
+    # device type the port does not run on still raises.
+    assert resolve_device("meta") == torch.device("meta")
     with pytest.raises(ValueError):
-        resolve_device("meta")
+        resolve_device("mps")

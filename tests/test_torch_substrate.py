@@ -5,11 +5,16 @@ directory written by either package restored by the other."""
 import contextlib
 import io
 import math
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
 
 from repro.checkpoint.store import CheckpointStore as RStore  # noqa: E402
 from repro_torch.checkpoint.store import CheckpointStore  # noqa: E402
@@ -175,8 +180,15 @@ def test_launch_train_on_the_cpu_prints_every_loss(tmp_path):
 
 
 def test_launch_train_refuses_what_it_cannot_run(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        launch_train.main(["--arch", "qwen2.5-32b", "--dry-run"])
+    # Item 9 is ported: --dry-run runs the train cell's dry run, here at
+    # the reduced config on a 2x4 mesh over a fake process group.
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen2.5-32b", "--dry-run", "--reduced", "--mesh", "2x4"],
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[OK] local2x4 qwen2.5-32b x train_4k:" in out.stdout
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         launch_train.main(["--arch", "deepseek-moe-16b", "--device", "cpu",
                            "--steps", "1"])
