@@ -109,7 +109,7 @@ def analyze_cell(cell, mesh, chips: int, shape: str) -> dict:
 def run_cell(arch: str, shape: str, *, multi_pod: bool,
              out_dir: pathlib.Path = OUT_DIR, force: bool = False,
              tag: str = "", mesh_shape: tuple | None = None,
-             reduced: bool = False, **build_kw) -> dict:
+             reduced: bool = False) -> dict:
     """One cell's record (read back from ``out_dir`` unless ``force``).
     ``mesh_shape`` replaces the production mesh by a (data, model) one;
     ``reduced`` runs the arch's reduced config."""
@@ -125,13 +125,13 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool,
     t0 = time.time()
     mesh = fake_mesh(multi_pod, mesh_shape)
     chips = mesh.size()
+    cfg = None
     if reduced:
         from repro_torch.configs import get_reduced
         from repro_torch.launch.inputs import cell_config
 
-        build_kw["cfg"] = cell_config(arch, shape, mesh,
-                                      base=get_reduced(arch))
-    cell = build_cell(arch, shape, mesh, **build_kw)
+        cfg = cell_config(arch, shape, mesh, base=get_reduced(arch))
+    cell = build_cell(arch, shape, mesh, cfg=cfg)
     build_s = time.time() - t0
     counted = analyze_cell(cell, mesh, chips, shape)
     record = {

@@ -30,7 +30,7 @@ shapes; those are not the program and are skipped.
 The reference's loop multiplier becomes :attr:`Counter.weight`: a
 caller that runs one of ``n`` identical microbatches sets it to ``n``
 for that microbatch and back to 1 for the rest (``launch/inputs.py``);
-``tests/test_torch_dryrun.py`` holds the scaled count to the full
+``tests/test_torch_dist.py`` holds the scaled count to the full
 loop's. ``collective_bytes_f32`` and ``cpu_upcast_bytes`` are kept for
 the record's keys and are 0: XLA on the CPU computes bf16 dots in f32
 and all-reduces f32 partials, torch does neither, so nothing is upcast.

@@ -13,9 +13,9 @@ same code runs the step.
 Attention takes the plain route (the streaming softmax), which is what
 the reference's dry run compiles. A train cell of ``microbatches`` > 1
 runs one microbatch and counts it ``microbatches`` times
-(``count_one_microbatch``; the optimizer and the accumulator's set-up
-once), as the reference's analyzer multiplies its scan's body by the
-trip count.
+(``count_one_microbatch``; the batch's split, the accumulator's set-up
+and the optimizer once), as the reference's analyzer multiplies its
+scan's body by the trip count.
 """
 from __future__ import annotations
 
@@ -36,6 +36,15 @@ from repro_torch.serve.engine import make_serve_step, serve_shardings
 from repro_torch.train.step import distribute_model, jit_train_step, place
 
 ATTENTION = "plain"
+
+# Fused FSDP+TP: parameter output dims shard over (model, data) jointly.
+FSDP_RULES = {
+    "d_ff": ("model", "data"),
+    "vocab": ("model", "data"),
+    "d_inner": ("model", "data"),
+    "heads_x_dim": ("model", "data"),
+    "head_dim": "data",            # FSDP for attention weights
+}
 
 
 def cell_config(arch: str, shape: str, mesh,
@@ -75,13 +84,7 @@ def rules_for(cfg: ModelConfig, kind: str, mesh) -> dict:
         # jointly (ZeRO-3 semantics). Small models skip FSDP: pure DP+TP
         # costs one gradient all-reduce per step instead of per-layer
         # weight gathers.
-        rules.update({
-            "d_ff": ("model", "data"),
-            "vocab": ("model", "data"),
-            "d_inner": ("model", "data"),
-            "heads_x_dim": ("model", "data"),
-            "head_dim": "data",            # FSDP for attention weights
-        })
+        rules.update(FSDP_RULES)
     if cfg.n_kv_heads % tp != 0:
         # True-KV weight dim can't shard; the stored-KV (duplicated)
         # activations/caches shard via the "kv_stored" rule instead.
@@ -141,10 +144,7 @@ def _default_microbatches(cfg: ModelConfig, cell: ShapeCell,
 
 
 def build_cell(arch: str, shape: str, mesh,
-               rules_override: dict | None = None,
-               microbatches: int | None = None,
-               moe_dispatch: str | None = None,
-               bf16_params: bool = False, *,
+               microbatches: int | None = None, *,
                cfg: ModelConfig | None = None,
                device="meta", seed: int = 0,
                count_one_microbatch: bool = True) -> Cell:
@@ -156,14 +156,7 @@ def build_cell(arch: str, shape: str, mesh,
         raise ValueError(f"{arch} x {shape} is a skip cell")
     cell = SHAPES[shape]
     cfg = cfg or cell_config(arch, shape, mesh)
-    if bf16_params and cell.kind == "train":
-        cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
-    if moe_dispatch is not None and cfg.moe is not None:
-        cfg = dataclasses.replace(
-            cfg, moe=dataclasses.replace(cfg.moe, dispatch=moe_dispatch))
     rules = rules_for(cfg, cell.kind, mesh)
-    if rules_override:
-        rules.update(rules_override)
     model = LM(cfg, device=device, seed=seed)
     meta = {"arch": arch, "shape": shape, "kind": cell.kind,
             "global_batch": cell.global_batch, "seq_len": cell.seq_len,
@@ -171,7 +164,7 @@ def build_cell(arch: str, shape: str, mesh,
             "rules": dict(rules)}
 
     if cell.kind == "train":
-        opt = AdamW(master_weights=bf16_params)
+        opt = AdamW()
         mb = microbatches if microbatches is not None else \
             _default_microbatches(cfg, cell, mesh)
         meta["microbatches"] = mb
@@ -180,7 +173,12 @@ def build_cell(arch: str, shape: str, mesh,
         meta["microbatches_run"] = limit or mb
 
         def mark(name):
-            if name == "microbatch":
+            # The microbatch between "split" and "microbatch" counts mb
+            # times; the split, the accumulation's set-up and the
+            # optimizer once.
+            if name == "split" and limit:
+                counter.set_weight(mb)
+            elif name == "microbatch":
                 counter.set_weight(1)
 
         step, (p_sh, o_sh, b_sh) = jit_train_step(
@@ -191,7 +189,7 @@ def build_cell(arch: str, shape: str, mesh,
         batch, b_sh = _abstract_batch(cfg, cell, mesh, rules, True, device)
 
         def fn(params, opt_state, batch):
-            counter.set_weight(mb if limit else 1)
+            counter.set_weight(1)
             return step(params, opt_state, batch)
 
         return Cell(arch, shape, cfg, fn, (params, o_abs, batch),

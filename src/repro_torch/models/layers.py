@@ -101,8 +101,16 @@ def embed_tokens(p, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Gather the rows, then cast: the reference casts the whole table
     first (the same values; at qwen2.5-32b a 1.57 GB copy per call). The
     gather is ``F.embedding``, which DTensor runs on a vocab-sharded
-    table (each rank looks up its rows, a masked partial sum)."""
-    return constrain(F.embedding(tokens, p["tokens"]).to(dtype),
+    table (each rank looks up its rows, a masked partial sum). There
+    the local shard is cast first, as the reference does, so that the
+    partial sum is reduced in ``dtype`` (every term but one is an exact
+    zero: the same values)."""
+    table = p["tokens"]
+    if any(getattr(q, "dim", None) == 0
+           for q in getattr(table, "placements", ())):
+        return constrain(F.embedding(tokens, table.to(dtype)),
+                         ("batch", "seq", "d_model"))
+    return constrain(F.embedding(tokens, table).to(dtype),
                      ("batch", "seq", "d_model"))
 
 

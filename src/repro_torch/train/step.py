@@ -50,23 +50,32 @@ def load_params(model: LM, params: dict) -> dict:
 def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """A DTensor gradient in its parameter's placements (a pending
     Partial sum reduced: the data-parallel gradient reduction); a plain
-    tensor as it is."""
-    if isinstance(g, DTensor) and tuple(g.placements) != \
+    tensor as it is. A mesh dimension on which the gradient is whole
+    and the parameter sharded is sliced first, at no cost, so that the
+    sum is reduced over the local shard only (DTensor's embedding
+    backward leaves the vocab-sharded table's gradient whole on every
+    model rank)."""
+    if not isinstance(g, DTensor) or tuple(g.placements) == \
             tuple(p.placements):
-        return g.redistribute(p.device_mesh, p.placements)
-    return g
+        return g
+    sliced = tuple(q if isinstance(a, Replicate) else a
+                   for a, q in zip(g.placements, p.placements))
+    if sliced != tuple(g.placements):
+        g = g.redistribute(p.device_mesh, sliced)
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def _split(x: torch.Tensor, n: int) -> tuple:
-    """``n`` microbatches of ``x`` along dim 0. A DTensor splits its
-    local rows, so that no rank's rows move (microbatch i holds the i-th
-    slice of every rank's rows; the step's sum over microbatches is the
-    same)."""
+    """``n`` microbatches of ``x`` along dim 0: microbatch i holds the
+    global rows [i b/n, (i+1) b/n), as the reference's reshape does (the
+    loss is a masked mean per microbatch, so which rows go together
+    matters). A DTensor sharded on dim 0 is gathered first, one
+    all-gather of the batch a step, and each microbatch is placed as
+    ``x`` was."""
     if not isinstance(x, DTensor):
         return x.chunk(n)
-    return tuple(DTensor.from_local(c, x.device_mesh, x.placements,
-                                    run_check=False)
-                 for c in x.to_local().chunk(n))
+    return tuple(c.redistribute(x.device_mesh, x.placements)
+                 for c in shd.gather_dim(x, 0).chunk(n))
 
 
 def make_train_step(model: LM, opt: AdamW, microbatches: int = 1, *,
@@ -76,8 +85,9 @@ def make_train_step(model: LM, opt: AdamW, microbatches: int = 1, *,
     opt_state, metrics). Turns gradients on for ``model``'s parameters.
 
     ``marks``, when given, is called with ``"forward"`` after each
-    loss, ``"backward"`` after each gradient, ``"microbatch"`` after
-    each microbatch's accumulation (microbatches > 1) and
+    loss, ``"backward"`` after each gradient, ``"split"`` once the
+    batch is split and ``"microbatch"`` after each microbatch's
+    accumulation (microbatches > 1), and
     ``"optimizer"`` after the update (a caller timing the parts records
     a CUDA event there). ``microbatch_limit`` runs only the first that
     many of the ``microbatches``, each still weighted 1/microbatches:
@@ -111,7 +121,9 @@ def make_train_step(model: LM, opt: AdamW, microbatches: int = 1, *,
             grads = {k: torch.zeros_like(p, dtype=torch.float32)
                      for k, p in own.items()}
             loss = torch.zeros((), device=model.device)
-            mbs = zip(*(_split(v, microbatches) for v in batch.values()))
+            mbs = list(zip(*(_split(v, microbatches)
+                             for v in batch.values())))
+            mark("split")
             for mb in itertools.islice(mbs, microbatch_limit):
                 l_mb, _, g_mb = grad_fn(own, dict(zip(batch, mb)))
                 for k, g in g_mb.items():
