@@ -147,6 +147,27 @@ Phases, each printing one JSON line:
                train_step_machine()); the reference's bit-exact restart
                at the reduced smollm config (8 steps, failure at 5,
                resumed), which must hold
+  train_families
+               the non-dense families trained at their configs' widths,
+               f32 parameters drawn on the card, bf16 activations, AdamW,
+               plain attention, remat, each in a process of its own
+               (``chip_smoke.py --train-family ARCH``): deepseek-moe-16b
+               with 4 of its 28 layers on one sequence of 4,096 lm_batch
+               tokens (einsum dispatch, capacity 1.25; fwd / bwd / opt ms,
+               tokens/s, model-FLOP share on the active parameters, peak
+               memory, drops, aux, one step profiled by kernel class; the
+               eval loss through the flash kernel within TRAIN_EVAL_TOL of
+               the plain route's and route_divergence at every layer
+               within SERVE_ATTN_TOL["bfloat16"], else a failure);
+               jamba-v0.1-52b's Mamba mixer alone at full width, fwd+bwd
+               on 1 x 4,096 tokens chunked (its peak above the start under
+               a bound from the per-chunk states, else a failure) and as
+               one flat loop (reported), and its card gradients at 512
+               tokens in f32 within MAMBA_GRAD_TOL of the CPU's; rwkv6-3b
+               whole (1 x 4,096, chunk 256), internvl2-2b and whisper-tiny
+               whole (2 x 512, frontends from frontend_batch): finite
+               losses, flash eval gated as above, one launch per causal
+               attention layer
   dist         the distribution and launch layer, two processes.
                ``dryrun``: qwen2.5-32b x train_4k and x decode_32k on the
                16x16 mesh over a fake group of 256 ranks on the card's
@@ -260,6 +281,33 @@ FAMILY_TIMEOUT_S = 420
 # one-query softmax; the recurrences' last step), so a few ulps (2^-8
 # each) of y: 1e-2. Reported in f32 too.
 FAMILY_CACHE_TOL = 1e-2
+# The train_families phase: the non-dense families trained at their
+# configs' full widths, f32 parameters drawn on the card from seed 0,
+# bf16 activations, AdamW, the plain attention route and layer remat,
+# each in a process of its own (``chip_smoke.py --train-family ARCH``).
+# deepseek-moe-16b keeps 4 of its 28 layers (2,770,880,512 parameters:
+# with gradients and AdamW's moments 44.3 GB), einsum dispatch at
+# capacity factor 1.25, one sequence of train_4k's 4,096 lm_batch
+# tokens; rwkv6-3b is whole (1 x 4,096, RWKV's chunked form at 256, as
+# the dry run's train cell runs it); internvl2-2b and whisper-tiny are
+# whole, 2 x 512 tokens with frontends from frontend_batch. Jamba's
+# 8-layer period (13.3 B parameters) does not train on one 80 GB card,
+# and its period cannot be cut: it runs the Mamba mixer of its first
+# layer alone (``mamba``), the layer whose backward is new.
+TRAIN_FAMILIES = {
+    "deepseek-moe-16b": {"n_layers": 4, "batch": 1, "seq": 4096,
+                         "steps": 3, "profile": True},
+    "jamba-v0.1-52b": {"batch": 1, "seq": 4096, "check_seq": 512},
+    "rwkv6-3b": {"batch": 1, "seq": 4096, "steps": 2, "rwkv_chunk": 256},
+    "internvl2-2b": {"batch": 2, "seq": 512, "steps": 2},
+    "whisper-tiny": {"batch": 2, "seq": 512, "steps": 2},
+}
+TRAIN_FAMILY_TIMEOUT_S = 420
+# The Mamba mixer's card gradients against the CPU's at 512 tokens in
+# float32 activations, as a share of max |g| per parameter: the two
+# sum 512 steps' contributions to A's and the projections' gradients in
+# different orders (cuBLAS's and the CPU's products, TF32 off).
+MAMBA_GRAD_TOL = 1e-3
 # The dist phase (the distribution and launch layer). ``dryrun``: the
 # qwen2.5-32b cells on the 16x16 production mesh over a fake group of
 # 256 ranks, nothing allocated, in a process of its own on the card's
@@ -1772,6 +1820,323 @@ def phase_train(dev) -> dict:
     return res
 
 
+def moe_drops(model, run) -> dict:
+    """The share of (token, expert) pairs the MoE layers' capacity
+    drops in ``run()``, overall and by layer (``moe._positions``
+    recorded)."""
+    from repro_torch.models import moe
+
+    seen = []
+    positions = moe._positions
+
+    def recording(top_e, e, c):
+        pos, keep = positions(top_e, e, c)
+        seen.append(((~keep).sum(), keep.numel()))
+        return pos, keep
+    moe._positions = recording
+    try:
+        run()
+    finally:
+        moe._positions = positions
+    return {"capacity_factor": model.cfg.moe.capacity_factor,
+            "share": sum(float(d) for d, _ in seen) /
+            sum(n for _, n in seen),
+            "share_by_layer": [float(d) / n for d, n in seen]}
+
+
+def train_family_run(arch: str, dev) -> dict:
+    """One configuration of the train_families phase (TRAIN_FAMILIES,
+    not jamba's): make_train_step under AdamW on batch_for's batches
+    (lm_batch tokens; whisper's frames and internvl2's patches from
+    frontend_batch), one warm-up step, then ``steps`` with CUDA events
+    around forward, backward and optimizer; the trained model's eval
+    loss through the flash kernel (counted) against the plain route's;
+    deepseek-moe-16b also one step profiled, its drops and, layer by
+    layer, the kernel against the plain route (route_divergence)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.data.pipeline import DataConfig, batch_for
+    from repro_torch.launch.costs import PEAK_FLOPS, model_flops
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step
+
+    run = TRAIN_FAMILIES[arch]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=run.get("n_layers",
+                                                     full.n_layers))
+    reduced = {} if cfg.n_layers == full.n_layers else \
+        {"n_layers": [full.n_layers, cfg.n_layers]}
+    b, s, n_steps = run["batch"], run["seq"], run["steps"]
+    chunk = run.get("rwkv_chunk")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt = AdamW(learning_rate=warmup_cosine(3e-3, 20, n_steps + 2))
+    dcfg = DataConfig(seed=0, seq_len=s, global_batch=b, vocab=cfg.vocab)
+    events: list = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append((name, e))
+
+    step = make_train_step(model, opt, rwkv_chunk=chunk, marks=mark)
+    params = dict(model.named_parameters())
+    ostate = opt.init(params)
+    kernels = kernel_counters()
+    for kern in kernels.values():
+        kern.launches = 0
+    losses, aux, parts = [], [], {"fwd": [], "bwd": [], "opt": []}
+    for i in range(n_steps + 1):
+        batch = batch_for(dcfg, i, cfg)      # drawn on the host, untimed
+        events.clear()
+        mark("start")
+        params, ostate, met = step(params, ostate, batch)
+        torch.cuda.synchronize()
+        losses.append(float(met["loss"]))
+        aux.append(float(met["aux"]))
+        if i:
+            at = dict(events)
+            parts["fwd"].append(at["start"].elapsed_time(at["forward"]))
+            parts["bwd"].append(at["forward"].elapsed_time(at["backward"]))
+            parts["opt"].append(at["backward"].elapsed_time(at["optimizer"]))
+    step_peak = torch.cuda.max_memory_allocated()
+    prof = None
+    if run.get("profile"):
+        batch = batch_for(dcfg, n_steps + 1, cfg)
+        with tempfile.TemporaryDirectory() as tmp:
+            ks, wall = traced_kernels(
+                {"train_step": lambda: step(params, ostate, batch)},
+                os.path.join(tmp, "trace.json"))["train_step"]
+        prof = kernel_classes(ks, wall)
+    eval_batch = batch_for(dcfg, n_steps + 2, cfg)
+    with torch.no_grad():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss_flash, _ = model.loss(eval_batch, rwkv_chunk=chunk)
+        ev[1].record()
+        loss_plain, _ = model.loss(eval_batch, attention="plain",
+                                   rwkv_chunk=chunk)
+        ev[2].record()
+        torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    loss_flash, loss_plain = float(loss_flash), float(loss_plain)
+    eval_rel = abs(loss_flash - loss_plain) / abs(loss_plain)
+    want_flash = sum(d.kind == "attn" and d.causal for d in model.descs)
+    del ostate, params
+    torch.cuda.empty_cache()
+    drops = div = None
+    if cfg.moe is not None:
+        with torch.no_grad():
+            drops = moe_drops(model, lambda: model.loss(eval_batch))
+    if run.get("profile"):
+        div = route_divergence(model, eval_batch["tokens"].to(dev),
+                               cfg.dtype)
+
+    step_ms = [f + bw + o for f, bw, o in zip(*parts.values())]
+    step_med = statistics.median(step_ms)
+    res = {
+        "arch": arch, "family": cfg.family, "reduced": reduced,
+        "params": model.n_params(), "param_dtype": cfg.param_dtype,
+        "dtype": cfg.dtype, "batch": b, "seq": s, "rwkv_chunk": chunk,
+        "prefix_positions": model.n_front,
+        "moe": None if cfg.moe is None else dataclasses.asdict(cfg.moe),
+        "attention": "plain (train step); flash and plain (eval)",
+        "init_s": init_s, "steps": n_steps, "fwd_ms": parts["fwd"],
+        "bwd_ms": parts["bwd"], "opt_ms": parts["opt"],
+        "step_ms": step_ms, "step_ms_median": step_med,
+        "tokens_per_s": b * s / step_med * 1e3, "losses": losses,
+        "aux": aux, "finite": all(np.isfinite(losses)),
+        "max_memory_allocated_step": step_peak,
+        "max_memory_allocated": peak, "profile": prof, "moe_drops": drops,
+        "eval_loss_flash": loss_flash, "eval_loss_plain": loss_plain,
+        "eval_rel_diff": eval_rel, "eval_tol": TRAIN_EVAL_TOL,
+        "eval_flash_ms": ev[0].elapsed_time(ev[1]),
+        "eval_plain_ms": ev[1].elapsed_time(ev[2]),
+        "launches": launches, "causal_attention_layers": want_flash,
+        "route_divergence": div, "attn_tol": SERVE_ATTN_TOL["bfloat16"]}
+    if s == SHAPES["train_4k"].seq_len:
+        # 6 N D on the active parameters (the routed top-k of each MoE
+        # layer) plus the causal attention term, for this step's tokens.
+        mflops = model_flops(cfg, "train_4k") / \
+            SHAPES["train_4k"].global_batch * b
+        res["model_flops_per_step"] = mflops
+        res["model_flop_share"] = mflops / (step_med * 1e-3 * PEAK_FLOPS)
+        res["active_params"] = cfg.active_param_count()
+    if not res["finite"]:
+        raise AssertionError(f"train_families {arch}: non-finite losses "
+                             f"{losses}")
+    if launches["flash_attention"] != want_flash:
+        raise AssertionError(f"train_families {arch}: "
+                             f"{launches['flash_attention']} flash launches "
+                             f"in one eval, {want_flash} causal attention "
+                             "layers")
+    if not eval_rel <= TRAIN_EVAL_TOL:
+        raise AssertionError(f"train_families {arch}: flash eval loss "
+                             f"{loss_flash} vs plain {loss_plain} "
+                             f"({eval_rel} > {TRAIN_EVAL_TOL})")
+    if div is not None and not div["attn_rel_max"] <= \
+            SERVE_ATTN_TOL["bfloat16"]:
+        raise AssertionError(f"train_families {arch}: flash attention vs "
+                             f"plain: {div['attn_rel_max']} of max |o|")
+    return res
+
+
+def mamba_layer_run(dev) -> dict:
+    """jamba-v0.1-52b's Mamba mixer (its first layer's, full width),
+    float32 parameters drawn on the card from seed 0, inside a layer
+    checkpoint as LM._run_stage runs it: fwd+bwd at 1 x 4,096 tokens in
+    bf16 activations, chunked (the path) and as one flat loop (the
+    contrast), each one's peak above what it starts with against the
+    bound from the per-chunk states; and at 512 tokens in f32
+    activations the card's gradients against the CPU's on the same
+    parameters, input and loss."""
+    import dataclasses
+
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba
+    from repro_torch.models import params as prm
+
+    run = TRAIN_FAMILIES["jamba-v0.1-52b"]
+    cfg = get_config("jamba-v0.1-52b")
+    specs = mamba.mamba_specs(cfg)
+    p = prm.Params(specs, device=dev, dtype=torch.float32)
+    prm.init(p, specs, torch.Generator(device=dev).manual_seed(0))
+    p.requires_grad_(True)
+    b, s = run["batch"], run["seq"]
+    di, n = cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def grads_of(params, x, c, w):
+        """The mixer's gradients under a layer checkpoint, the loss a
+        fixed random projection ``w`` of its output."""
+        y = checkpoint(lambda t: mamba.mamba_forward(params, t, c)[0], x,
+                       use_reentrant=False)
+        return torch.autograd.grad((y.float() * w).sum(),
+                                   list(params.parameters()))
+
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    grads_of(p, x, cfg, w)                                   # warm-up
+    torch.cuda.synchronize()
+    c = mamba.chunk_len(s)
+    out: dict = {"chunk": c, "n_chunks": s // c}
+    for name in ("chunked", "flat"):
+        chunk_len = mamba.chunk_len
+        if name == "flat":
+            mamba.chunk_len = lambda _s: 1
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            grads = grads_of(p, x, cfg, w)
+            ev[1].record()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        finally:
+            mamba.chunk_len = chunk_len
+        out[name] = {"fwd_bwd_ms": ev[0].elapsed_time(ev[1]),
+                     "peak_above_start": peak,
+                     "finite_grads": all(bool(torch.isfinite(g).all())
+                                         for g in grads)}
+        del grads
+    # The bound, before any reading: the full-sequence tensors autograd
+    # holds in the layer's backward (its recomputed forward and their
+    # gradients), at most 12 f32 (B, S, d_inner) tensors' worth
+    # (1.5 GiB here), plus the state a checkpoint holds between chunks
+    # (n_chunks x (B, d_inner, N) f32, 16 MiB) and one chunk's steps
+    # recomputed and differentiated (8 (B, d_inner, N) f32 tensors a
+    # step, 512 MiB). A flat loop holds ~4 such tensors for every one of
+    # the S steps instead (8 GiB).
+    state = b * di * n * 4
+    out["peak_bound"] = 12 * b * s * di * 4 + out["n_chunks"] * state + \
+        8 * c * state
+    out["flat_steps_bytes_estimate"] = 4 * s * state
+
+    # Card vs CPU at check_seq tokens, float32 activations.
+    sc = run["check_seq"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cpu = prm.Params(specs, device=torch.device("cpu"), dtype=torch.float32)
+    with torch.no_grad():
+        for a, t in zip(p.parameters(), cpu.parameters()):
+            t.copy_(a.cpu())
+    cpu.requires_grad_(True)
+    xs = torch.randn((b, sc, cfg.d_model), generator=gen, device=dev)
+    ws = torch.randn((b, sc, cfg.d_model), generator=gen, device=dev)
+    g_card = [g.cpu() for g in grads_of(p, xs, cfg32, ws)]
+    g_cpu = grads_of(cpu, xs.cpu(), cfg32, ws.cpu())
+    rel = {name: float((gg - gc).abs().max() / gc.abs().max())
+           for (name, _), gc, gg in zip(cpu.named_parameters(), g_cpu,
+                                        g_card)}
+    out["grad_check"] = {"tokens": sc, "dtype": "float32",
+                         "rel_by_param": rel, "rel_max": max(rel.values()),
+                         "tol": MAMBA_GRAD_TOL}
+    out.update({"arch": "jamba-v0.1-52b", "what": "Mamba mixer of layer 0",
+                "reduced": {"n_layers": [cfg.n_layers, "one mixer"]},
+                "params": prm.count(specs), "batch": b, "seq": s,
+                "d_model": cfg.d_model, "d_inner": di, "d_state": n,
+                "dtype": "bfloat16", "param_dtype": "float32"})
+    if not out["chunked"]["finite_grads"]:
+        raise AssertionError("train_families jamba: non-finite gradients")
+    if not out["chunked"]["peak_above_start"] <= out["peak_bound"]:
+        raise AssertionError(f"train_families jamba: peak "
+                             f"{out['chunked']['peak_above_start']} B "
+                             f"above the start, bound {out['peak_bound']}")
+    if not out["grad_check"]["rel_max"] <= MAMBA_GRAD_TOL:
+        raise AssertionError(f"train_families jamba: card vs CPU gradients "
+                             f"{out['grad_check']['rel_max']} of max |g|")
+    return out
+
+
+def phase_train_families() -> dict:
+    """Each TRAIN_FAMILIES configuration in a process of its own
+    (``chip_smoke.py --train-family ARCH``, its result as its last
+    line); one ``train_families`` line each. A process that fails fails
+    the phase."""
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--train-family",
+             arch], capture_output=True, text=True,
+            timeout=TRAIN_FAMILY_TIMEOUT_S, cwd=ROOT)
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"train_families {arch}: exit {proc.returncode}\n"
+                f"{proc.stderr[-6000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        res["process_s"] = time.perf_counter() - t0
+        emit("train_families", **res)
+        out[arch] = res
+    return out
+
+
+def train_family_main(arch: str) -> int:
+    """The child of phase_train_families: one configuration, its result
+    as one JSON line."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.device import resolve_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = resolve_device()
+    res = mamba_layer_run(dev) if arch == "jamba-v0.1-52b" else \
+        train_family_run(arch, dev)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
 def dist_dryrun() -> dict:
     """The child ``--dist dryrun``: DIST["dryrun_shapes"] of DIST["arch"]
     through launch/dryrun.py's run_cell on the 16x16 mesh (a fake group
@@ -2686,6 +3051,7 @@ def main() -> int:
     train = phase_train(dev)
     emit("train", **train)
     torch.cuda.empty_cache()
+    train_families = phase_train_families()
     phase_dist()
     launches = {**main_path["launches"], **onehot_path["launches"],
                 **serve["launches"]}
@@ -2698,7 +3064,10 @@ def main() -> int:
                "families": {"flash_attention": sum(
                    f["launches"]["flash_attention"]
                    for f in families.values())},
-               "train": {k: n for k, n in train["launches"].items() if n}}
+               "train": {k: n for k, n in train["launches"].items() if n},
+               "train_families": {"flash_attention": sum(
+                   f["launches"]["flash_attention"]
+                   for f in train_families.values() if "launches" in f)}}
 
     def entry(name, source, replaces, calls, path, summed=(), **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -2757,4 +3126,6 @@ if __name__ == "__main__":
         sys.exit(family_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--dist":
         sys.exit(dist_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-family":
+        sys.exit(train_family_main(sys.argv[2]))
     sys.exit(main())

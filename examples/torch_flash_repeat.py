@@ -3,7 +3,7 @@
 Usage (from the repository root, one CUDA card):
 
     PYTHONPATH=src python examples/torch_flash_repeat.py \
-        [--reps 200] [--load-s 25]
+        [--reps 200] [--load-s 25] [--fresh 0]
 
 ``chip_smoke.py``'s attention sweep (``ATTN_SWEEP``: the reference's
 causal sweep, cross-attention and decode alignment, inputs from
@@ -18,6 +18,14 @@ their bytes) and the least and largest max abs error against the CPU's
 plain path (the sweep's own reference, ``chip_smoke.py`` gates it at
 2e-5 in float32 and 3e-2 in bf16). The card's name, power limit and ECC
 counters come first, the ECC counters again last.
+
+``--fresh N`` instead starts N processes, each of which launches the
+kernel once, its first launch, on ``tests/test_torch_cuda.py``'s first
+attention case (2 x 3 x 256 x 64 float32 causal, inputs from
+``default_rng(325)``), and computes the CPU's plain path and a float64
+one on the same inputs: one JSON line with the distinct outputs of each
+side across the processes (SHA-256 of their bytes) and the largest
+distances kernel vs plain, kernel vs float64 and plain vs float64.
 """
 from __future__ import annotations
 
@@ -51,14 +59,75 @@ def load(seconds: float) -> None:
         torch.cuda.synchronize()
 
 
+FRESH_CASE = (2, 3, 256, 64)
+
+
+def fresh_child() -> dict:
+    """One process's first kernel launch on FRESH_CASE beside the CPU's
+    plain path and float64."""
+    import numpy as np
+
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.flash_attention.ops import mha
+
+    dev = resolve_device()
+    rng = np.random.default_rng(sum(FRESH_CASE))
+    arrays = [rng.standard_normal(FRESH_CASE).astype(np.float32)
+              for _ in range(3)]
+    out = mha(*(torch.from_numpy(a).to(dev) for a in arrays), causal=True)
+    out = out.cpu()
+    plain = mha(*(torch.from_numpy(a) for a in arrays), causal=True)
+    q, k, v = (torch.from_numpy(a).double() for a in arrays)
+    scores = q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5
+    scores = scores.masked_fill(torch.ones(
+        scores.shape[-2:], dtype=torch.bool).triu(1), float("-inf"))
+    f64 = torch.softmax(scores, dim=-1) @ v
+
+    def dist(a, b):
+        return float((a.double() - b.double()).abs().max())
+    return {"kernel": digest(out), "plain": digest(plain),
+            "kernel_vs_plain": dist(out, plain),
+            "kernel_vs_f64": dist(out, f64), "plain_vs_f64": dist(plain, f64)}
+
+
+def fresh(n: int) -> dict:
+    """FRESH_CASE's first launch in each of ``n`` processes."""
+    runs = []
+    for _ in range(n):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--fresh-child"], capture_output=True,
+                              text=True, timeout=300, check=True)
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    return {"condition": "fresh_processes", "q": list(FRESH_CASE),
+            "processes": n,
+            "distinct_kernel_outputs": len({r["kernel"] for r in runs}),
+            "distinct_plain_outputs": len({r["plain"] for r in runs}),
+            **{f"{k}_max": max(r[k] for r in runs)
+               for k in ("kernel_vs_plain", "kernel_vs_f64",
+                         "plain_vs_f64")},
+            "kernel_vs_plain_by_process": [r["kernel_vs_plain"]
+                                           for r in runs]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--load-s", type=float, default=25.0)
+    ap.add_argument("--fresh", type=int, default=0)
     ap.add_argument("--load", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--fresh-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.load:
         load(args.load_s)
+        return 0
+    if args.fresh_child:
+        print(json.dumps(fresh_child()), flush=True)
+        return 0
+    if args.fresh:
+        print(nvidia_smi_line(), flush=True)
+        print(json.dumps(fresh(args.fresh)), flush=True)
+        print(json.dumps({"ecc": ecc_line()}), flush=True)
         return 0
     from repro_torch.device import resolve_device
     from repro_torch.kernels.flash_attention.ops import mha

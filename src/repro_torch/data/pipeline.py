@@ -2,17 +2,16 @@
 
 Port of ``repro/data/pipeline.py``. The batch for step ``s`` is a pure
 function of ``(seed, s)``, so a restart needs only the step counter.
-The draws are the reference's ``jax.random`` draws, token id for token
-id, made in numpy by :mod:`.prng`; batches are int32 CPU tensors, which
-the train step moves to the model's device.
+The draws are the reference's ``jax.random`` draws, bit for bit, made
+in numpy by :mod:`.prng`; batches are CPU tensors (ids int32, frontends
+float32), which the train step moves to the model's device.
 
   * ``lm_batch``     iid tokens with a learnable rule mixed in.
   * ``packed_batch`` documents packed to seq_len with EOS separators and
     -1 labels on the targets that cross a boundary.
-
-``frontend_batch`` (the audio/VLM frontends' pseudo-embeddings) needs
-``jax.random.normal`` in numpy, which comes with the training of the
-non-dense families (ROADMAP Queue 1 item 11): it raises.
+  * ``frontend_batch`` the audio/VLM frontends' pseudo-embeddings:
+    standard normal float32 (B, n_positions, d_frontend), which
+    ``batch_for`` adds for whisper and internvl2.
 """
 from __future__ import annotations
 
@@ -74,11 +73,12 @@ def packed_batch(cfg: DataConfig, step: int) -> dict:
     return _tensors(tokens=tokens, labels=labels)
 
 
-def frontend_batch(cfg: DataConfig, step: int, model_cfg: ModelConfig):
-    raise NotImplementedError(
-        f"{model_cfg.name}: frontend batches need jax.random.normal in "
-        "numpy, which waits for the training of the non-dense families "
-        "(ROADMAP Queue 1 item 11)")
+def frontend_batch(cfg: DataConfig, step: int,
+                   model_cfg: ModelConfig) -> dict:
+    fe = model_cfg.frontend
+    emb = prng.normal(_key(cfg, step, 3),
+                      (cfg.global_batch, fe.n_positions, fe.d_frontend))
+    return {"frontend": torch.from_numpy(emb)}
 
 
 def batch_for(cfg: DataConfig, step: int, model_cfg: ModelConfig) -> dict:

@@ -325,6 +325,56 @@ def unflatten(x, dim: int, sizes: Sequence[int]):
     return x.unflatten(dim, sizes)
 
 
+def _local_contiguous(t):
+    """A DTensor's copy whose local shard is contiguous (``t`` itself if
+    it is). DTensor's own ``contiguous`` looks at the global strides."""
+    if not isinstance(t, DTensor) or t.to_local().is_contiguous():
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def contiguous_grad(x):
+    """``x``, whose gradient's local shard is made contiguous on the way
+    back (a DTensor only). DTensor decides whether a reshape is a view
+    from the global tensor's strides, not its shard's: a gradient whose
+    shard is laid out transposed (attention's backward) would reach a
+    view, in an einsum's backward, that its shard cannot take."""
+    if not isinstance(x, DTensor):
+        return x
+    return _ContiguousGrad.apply(x)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _local_contiguous(g)
+
+
+def flatten(x, dim: int, sizes: Sequence[int]):
+    """``x.flatten(dim, dim + 1)`` of two dimensions of ``sizes``; on a
+    mesh its gradient is split back by :func:`unflatten` (so a
+    gradient sharded unevenly over the first factor is gathered
+    first), where DTensor's own view backward refuses it."""
+    if not isinstance(x, DTensor):
+        return x.flatten(dim, dim + 1)
+    return _Flatten.apply(x, dim, tuple(sizes))
+
+
+class _Flatten(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, sizes):
+        ctx.dim, ctx.sizes = dim, sizes
+        return x.flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return unflatten(g, ctx.dim, ctx.sizes), None, None
+
+
 def run_local(fn, dts: Sequence, rest: Sequence, out_like):
     """``fn(*locals, *rest)`` on the local shards of the DTensors
     ``dts``, its output a DTensor placed as ``out_like`` (the same

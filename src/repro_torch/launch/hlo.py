@@ -29,14 +29,17 @@ shapes; those are not the program and are skipped.
 
 The reference's loop multiplier becomes :attr:`Counter.weight`: a
 caller that runs one of ``n`` identical microbatches sets it to ``n``
-for that microbatch and back to 1 for the rest (``launch/inputs.py``);
-``tests/test_torch_dist.py`` holds the scaled count to the full
-loop's. ``collective_bytes_f32`` and ``cpu_upcast_bytes`` are kept for
+for that microbatch and back to 1 for the rest (``launch/inputs.py``),
+and Mamba's time loop runs the second of its ``n`` chunks under
+:meth:`Counter.scaled` by ``n - 1`` (``models/mamba.py:count_one_chunk``),
+which multiplies the weight in force; ``tests/test_torch_dist.py`` holds both
+scaled counts to the full loops'. ``collective_bytes_f32`` and ``cpu_upcast_bytes`` are kept for
 the record's keys and are 0: XLA on the CPU computes bf16 dots in f32
 and all-reduces f32 partials, torch does neither, so nothing is upcast.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
 
@@ -62,7 +65,7 @@ class HloAnalysis:
     dot_flops: float                     # per device, loops multiplied
     collective_bytes: dict[str, float]   # per collective kind
     collective_count: dict[str, int]
-    loop_trips: list[int]                # the weights counts were scaled by
+    loop_trips: list[int]                # the distinct trip counts scaled by
     collective_bytes_f32: float = 0.0    # nothing is upcast: see above
     cpu_upcast_bytes: float = 0.0
     collective_bytes_by_axis: dict[str, float] = dataclasses.field(
@@ -115,6 +118,18 @@ class Counter(TorchDispatchMode):
         self.weight = w
         if w != 1:
             self.weights.append(w)
+
+    @contextlib.contextmanager
+    def scaled(self, n: int):
+        """Count what runs inside ``n`` times over the weight in force:
+        one trip of a loop of ``n`` identical ones."""
+        w = self.weight
+        self.weight = w * n
+        self.weights.append(n)
+        try:
+            yield
+        finally:
+            self.weight = w
 
     def _release(self, key: int, _ref) -> None:
         held = self._held.pop(key, None)
@@ -192,6 +207,6 @@ def analyze(fn, *args, mesh=None, counter: Counter | None = None):
               "temp_size_in_bytes": max(0, c.peak - new_out)}
     return HloAnalysis(dot_flops=c.dot_flops, collective_bytes=c.cbytes,
                        collective_count=c.ccount,
-                       loop_trips=sorted(c.weights),
+                       loop_trips=sorted(set(c.weights)),
                        collective_bytes_by_axis=c.by_axis,
                        memory=memory), out

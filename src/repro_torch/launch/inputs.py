@@ -14,8 +14,13 @@ Attention takes the plain route (the streaming softmax), which is what
 the reference's dry run compiles. A train cell of ``microbatches`` > 1
 runs one microbatch and counts it ``microbatches`` times
 (``count_one_microbatch``; the batch's split, the accumulator's set-up
-and the optimizer once), as the reference's analyzer multiplies its
-scan's body by the trip count.
+and the optimizer once), and Mamba's time loop runs its first two
+chunks, the second counted once for each chunk after the first
+(``count_one_chunk``: forward, recompute and backward; the skipped
+chunks' outputs and saved states are allocated, so their bytes count),
+as the reference's analyzer multiplies its scans' bodies by their trip
+counts. RWKV runs its chunked form in the
+train and prefill cells (``_rwkv_chunk``), as the reference's do.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from repro_torch import configs as cfgs
 from repro_torch.configs.shapes import SHAPES, ShapeCell, applicable
 from repro_torch.dist import sharding as shd
 from repro_torch.launch.hlo import Counter
+from repro_torch.models import mamba
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LM
 from repro_torch.optim.adamw import AdamW
@@ -107,7 +113,7 @@ class Cell:
     out_shardings: Any
     meta: dict
     model: LM | None = None
-    counter: Counter | None = None   # the weights a train step sets
+    counter: Counter | None = None   # the weights the step sets
 
 
 def _abstract_batch(cfg: ModelConfig, cell: ShapeCell, mesh, rules: dict,
@@ -147,28 +153,47 @@ def build_cell(arch: str, shape: str, mesh,
                microbatches: int | None = None, *,
                cfg: ModelConfig | None = None,
                device="meta", seed: int = 0,
-               count_one_microbatch: bool = True) -> Cell:
+               count_one_microbatch: bool = True,
+               count_one_chunk: bool = True) -> Cell:
     """One cell on ``mesh``. ``cfg`` replaces the cell's config (a
     reduced or depth-cut one); ``device`` other than ``"meta"`` builds
     real parameters there (drawn from ``seed``), on a mesh of that
-    device type."""
+    device type. ``count_one_microbatch`` counts one microbatch for all,
+    ``count_one_chunk`` one Mamba chunk for all but the first (on the
+    meta device only: a real device computes every chunk)."""
     if not applicable(arch, shape):
         raise ValueError(f"{arch} x {shape} is a skip cell")
     cell = SHAPES[shape]
     cfg = cfg or cell_config(arch, shape, mesh)
     rules = rules_for(cfg, cell.kind, mesh)
     model = LM(cfg, device=device, seed=seed)
+    counter = Counter()
+    one_chunk = count_one_chunk and device == "meta"
+    chunk = _rwkv_chunk(cfg, cell)
     meta = {"arch": arch, "shape": shape, "kind": cell.kind,
             "global_batch": cell.global_batch, "seq_len": cell.seq_len,
             "n_params": model.n_params(), "attention": ATTENTION,
-            "rules": dict(rules)}
+            "rules": dict(rules), "rwkv_chunk": chunk,
+            "count_one_chunk": one_chunk}
+
+    def counted(fn):
+        """``fn`` with Mamba's time loop counted on two chunks."""
+        if not one_chunk:
+            return fn
+
+        def run(*args):
+            token = mamba.count_one_chunk.set(counter.scaled)
+            try:
+                return fn(*args)
+            finally:
+                mamba.count_one_chunk.reset(token)
+        return run
 
     if cell.kind == "train":
         opt = AdamW()
         mb = microbatches if microbatches is not None else \
             _default_microbatches(cfg, cell, mesh)
         meta["microbatches"] = mb
-        counter = Counter()
         limit = 1 if count_one_microbatch and mb > 1 else None
         meta["microbatches_run"] = limit or mb
 
@@ -182,8 +207,8 @@ def build_cell(arch: str, shape: str, mesh,
                 counter.set_weight(1)
 
         step, (p_sh, o_sh, b_sh) = jit_train_step(
-            model, opt, mesh, rules, microbatches=mb, marks=mark,
-            microbatch_limit=limit)
+            model, opt, mesh, rules, microbatches=mb, rwkv_chunk=chunk,
+            marks=mark, microbatch_limit=limit)
         params = dict(model.named_parameters())
         o_abs = opt.init(params)
         batch, b_sh = _abstract_batch(cfg, cell, mesh, rules, True, device)
@@ -192,7 +217,7 @@ def build_cell(arch: str, shape: str, mesh,
             counter.set_weight(1)
             return step(params, opt_state, batch)
 
-        return Cell(arch, shape, cfg, fn, (params, o_abs, batch),
+        return Cell(arch, shape, cfg, counted(fn), (params, o_abs, batch),
                     (p_sh, o_sh, b_sh), (p_sh, o_sh, None), meta, model,
                     counter)
 
@@ -204,7 +229,6 @@ def build_cell(arch: str, shape: str, mesh,
                                          n_memory, rules)
     distribute_model(model, mesh, p_sh)
     params = dict(model.named_parameters())
-    chunk = _rwkv_chunk(cfg, cell)
 
     if cell.kind == "prefill":
         batch, b_sh = _abstract_batch(cfg, cell, mesh, rules, False, device)
@@ -215,8 +239,9 @@ def build_cell(arch: str, shape: str, mesh,
                                  attention=ATTENTION, rwkv_chunk=chunk)
 
         return Cell(arch, shape, cfg,
-                    shd.bound_to(prefill, mesh, rules),
-                    (params, batch), (p_sh, b_sh), None, meta, model)
+                    counted(shd.bound_to(prefill, mesh, rules)),
+                    (params, batch), (p_sh, b_sh), None, meta, model,
+                    counter)
 
     # decode: one new token against a seq_len cache.
     with shd.activation_sharding(mesh, rules):

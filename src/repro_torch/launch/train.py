@@ -12,8 +12,10 @@ reduced config, packed synthetic data, AdamW under warmup_cosine(3e-3,
 accounting. It prints every step's loss (the reference prints every
 tenth). Parameters are drawn from seed 0 on ``--device``, the card
 unless ``cpu`` is given. Without ``--ckpt-dir`` the checkpoints go to a
-temporary directory, removed at exit. The dense configs only (the
-other families wait for ROADMAP Queue 1 item 11). ``--dry-run`` runs the
+temporary directory, removed at exit. Any ``--arch`` of the configs
+trains: its batches come from ``batch_for`` (whisper's frames and
+internvl2's patches with them), RWKV in its sequential form, as the
+reference's launcher runs it. ``--dry-run`` runs the
 train cell of the full config on a production mesh instead
 (``launch/dryrun.py``: one step over a fake process group, counted,
 nothing allocated); ``--reduced`` and ``--mesh`` shrink it.

@@ -108,9 +108,12 @@ def repeat_kv(cfg: ModelConfig, kv: torch.Tensor) -> torch.Tensor:
 
 def project_qkv(p, xq: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig):
     dt = xq.dtype
-    q = torch.einsum("bsd,dhk->bshk", xq, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", xkv, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", xkv, p["wv"].to(dt))
+    # On a mesh the streaming attention's backward leaves k's and v's
+    # gradients with transposed local shards; a cross sublayer (no rope
+    # between) would hand them to the einsum's backward as they are.
+    q, k, v = (shd.contiguous_grad(torch.einsum(
+        "bsd,dhk->bshk", x, p[w].to(dt)))
+        for x, w in ((xq, "wq"), (xkv, "wk"), (xkv, "wv")))
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)

@@ -18,14 +18,16 @@ weights, and the Switch load-balancing loss. Among equal probabilities
 the lower expert comes first, as ``jax.lax.top_k`` orders them: a
 stable descending sort, since ``torch.topk`` promises no order among
 ties. The reference's ``constrain`` calls stand where it puts them
-(no-ops off a mesh).
+(no-ops off a mesh), and two more place what XLA's propagation places
+unasked: the expert one-hots on the experts axis and the combine's
+output in the residual's placement.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist.sharding import constrain, contiguous_grad
 from repro_torch.models.config import ModelConfig, MoeConfig
 from repro_torch.models.layers import mlp, mlp_specs
 from repro_torch.models.params import Spec, stack_specs
@@ -97,7 +99,9 @@ def _moe_experts(p, xe: torch.Tensor, kind: str) -> torch.Tensor:
     b, e, c, d = xe.shape
     xe_t = xe.transpose(0, 1).reshape(e, b * c, d)          # (E,B*C,d)
     ye = mlp(p["experts"], xe_t, kind, lead=("experts", None))
-    ye = ye.reshape(e, b, c, d).transpose(0, 1)
+    # On a mesh the transpose's gradient reaches the reshape's backward
+    # (a view) with a transposed local shard (contiguous_grad says why).
+    ye = contiguous_grad(ye.reshape(e, b, c, d)).transpose(0, 1)
     return constrain(ye, ("batch", "experts", None, "d_model"))
 
 
@@ -106,7 +110,12 @@ def _dispatch_einsum(p, x: torch.Tensor, top_w, top_e, mc: MoeConfig,
     b, s, d = x.shape
     e, c = mc.n_experts, _capacity(s, mc, capacity)
     pos, keep = _positions(top_e, e, c)
-    oh_e = F.one_hot(top_e, e).to(x.dtype)                  # (B,S,k,E)
+    # Sharded on the experts from the start, so that the dispatch and
+    # combine tensors and their products are computed for the local
+    # experts only (what XLA's propagation back from xe's constraint
+    # gives; DTensor propagates forward only).
+    oh_e = constrain(F.one_hot(top_e, e).to(x.dtype),
+                     ("batch", None, None, "experts"))      # (B,S,k,E)
     oh_c = F.one_hot(torch.where(keep, pos, c), c + 1).to(
         x.dtype)[..., :c]                                   # (B,S,k,C)
     disp = torch.einsum("bske,bskc->bsec", oh_e, oh_c)      # (B,S,E,C)
@@ -115,7 +124,8 @@ def _dispatch_einsum(p, x: torch.Tensor, top_w, top_e, mc: MoeConfig,
     xe = torch.einsum("bsec,bsd->becd", disp, x)
     xe = constrain(xe, ("batch", "experts", None, "d_model"))
     ye = _moe_experts(p, xe, kind)
-    return torch.einsum("bsec,becd->bsd", comb, ye)
+    return constrain(torch.einsum("bsec,becd->bsd", comb, ye),
+                     ("batch", "seq", "d_model"))
 
 
 def _dispatch_gather(p, x: torch.Tensor, top_w, top_e, mc: MoeConfig,

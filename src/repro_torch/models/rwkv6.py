@@ -13,9 +13,10 @@ normalisation of the readout. Two forms over time, both float32:
   * sequential (``chunk=None``): one step per token, exact; serving
     uses it;
   * chunked (``chunk=C``): within a chunk the contributions come from
-    cumulative decay products, and the state passes from chunk to chunk.
-    Its per-step decay is clamped at exp(-30/C), so it equals the
-    sequential form within the reference's own test bound.
+    cumulative decay products, and the state passes from chunk to chunk
+    (each chunk checkpointed under grad). Its per-step decay is clamped
+    at exp(-30/C), so it equals the sequential form within the
+    reference's own test bound.
 
 Decode carries (shift, S): O(1) state a token.
 """
@@ -23,8 +24,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.sharding import constrain, unflatten
+from repro_torch.dist.sharding import constrain, flatten, unflatten
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Spec
 
@@ -86,7 +88,7 @@ def _readout(p, y: torch.Tensor, g: torch.Tensor, cfg: ModelConfig):
     mean = yf.mean(-1, keepdim=True)
     var = yf.var(-1, keepdim=True, correction=0)
     yn = (yf - mean) * torch.rsqrt(var + 1e-5) * p["ln_scale"].float()
-    out = yn.reshape(b, s, h * n).to(g.dtype) * g
+    out = flatten(yn, 2, (h, n)).to(g.dtype) * g
     return out @ p["wo"].to(g.dtype)
 
 
@@ -128,10 +130,10 @@ def rwkv_forward(p, x: torch.Tensor, cfg: ModelConfig,
 
 def _chunked(r, k, v, w, u, s0, chunk: int):
     """Block-parallel RWKV evaluation (O(T/C) sequential steps), all in
-    float32. r, k, v, w: (B, S, H, N).
-
-    Within a chunk: y_t = r_t (prod_{i<t} w_i) S_in plus the causal pairs
-    inside the chunk, each with the decay product between k_i and r_t.
+    float32. r, k, v, w: (B, S, H, N). With gradients on each block is
+    checkpointed, as the reference's ``jax.checkpoint(block)``: the
+    backward pass holds the state once a block and recomputes the
+    block's (B, H, C, C) products.
     """
     b, s, h, n = r.shape
     if s % chunk:
@@ -140,31 +142,46 @@ def _chunked(r, k, v, w, u, s0, chunk: int):
     st = s0
     ys = []
     for c0 in range(0, s, chunk):
-        rc, kc, vc, wc = (a[:, c0:c0 + chunk] for a in (r, k, v, w))
-        logw = torch.log(wc.clamp_min(1e-38))
-        # Stability clamp for the factored decay products: a per-step
-        # decay below exp(-30/C) compounds to < 1e-13 across the chunk,
-        # numerically zero in f32, while exp(-cum) stays <= e^30.
-        logw = logw.clamp_min(-30.0 / chunk)
-        cum = torch.cumsum(logw, dim=1)         # prod_{i<=t} w_i
-        cum_excl = cum - logw                   # prod_{i<t} w_i
-        # Inter-chunk: r_t decayed against the incoming state.
-        r_dec = rc * torch.exp(cum_excl)
-        y_inter = torch.einsum("bchn,bhnm->bchm", r_dec, st)
-        # Intra-chunk causal pairs: the decay between i (k) and t (r) is
-        # prod_{j in (i, t)} w_j = exp(cum_excl[t] - cum[i]).
-        att = torch.einsum("bchn,bdhn->bhcd", r_dec, kc * torch.exp(-cum))
-        att = att * mask
-        # Current-token bonus term (diag(u)).
-        bonus = torch.einsum("bchn,bchn->bch", rc * u, kc)
-        y_intra = torch.einsum("bhcd,bdhn->bchn", att, vc) + \
-            bonus[..., None] * vc
-        # State update across the chunk.
-        k_dec = kc * torch.exp(cum[:, -1:] - cum)
-        st = torch.exp(cum[:, -1])[..., :, None] * st + torch.einsum(
-            "bchn,bchm->bhnm", k_dec, vc)
-        ys.append(y_inter + y_intra)
+        blk = tuple(a[:, c0:c0 + chunk] for a in (r, k, v, w))
+        if torch.is_grad_enabled():
+            st, y = checkpoint(_block, st, *blk, u, mask,
+                               use_reentrant=False)
+        else:
+            st, y = _block(st, *blk, u, mask)
+        ys.append(y)
     return st, torch.cat(ys, dim=1)
+
+
+def _block(st, rc, kc, vc, wc, u, mask):
+    """One block of :func:`_chunked`: (the state after it, its y).
+
+    Within a block: y_t = r_t (prod_{i<t} w_i) S_in plus the causal pairs
+    inside the block, each with the decay product between k_i and r_t.
+    """
+    chunk = rc.shape[1]
+    logw = torch.log(wc.clamp_min(1e-38))
+    # Stability clamp for the factored decay products: a per-step
+    # decay below exp(-30/C) compounds to < 1e-13 across the chunk,
+    # numerically zero in f32, while exp(-cum) stays <= e^30.
+    logw = logw.clamp_min(-30.0 / chunk)
+    cum = torch.cumsum(logw, dim=1)         # prod_{i<=t} w_i
+    cum_excl = cum - logw                   # prod_{i<t} w_i
+    # Inter-chunk: r_t decayed against the incoming state.
+    r_dec = rc * torch.exp(cum_excl)
+    y_inter = torch.einsum("bchn,bhnm->bchm", r_dec, st)
+    # Intra-chunk causal pairs: the decay between i (k) and t (r) is
+    # prod_{j in (i, t)} w_j = exp(cum_excl[t] - cum[i]).
+    att = torch.einsum("bchn,bdhn->bhcd", r_dec, kc * torch.exp(-cum))
+    att = att * mask
+    # Current-token bonus term (diag(u)).
+    bonus = torch.einsum("bchn,bchn->bch", rc * u, kc)
+    y_intra = torch.einsum("bhcd,bdhn->bchn", att, vc) + \
+        bonus[..., None] * vc
+    # State update across the chunk.
+    k_dec = kc * torch.exp(cum[:, -1:] - cum)
+    st = torch.exp(cum[:, -1])[..., :, None] * st + torch.einsum(
+        "bchn,bchm->bhnm", k_dec, vc)
+    return st, y_inter + y_intra
 
 
 def rwkv_decode(p, x: torch.Tensor, cfg: ModelConfig,

@@ -15,10 +15,12 @@ Attention runs on the plain route (the streaming softmax, with the
 reference's nested remat); the flash kernel has no backward.
 :func:`train_shardings` gives the placements of parameters, optimizer
 state and batch on a mesh, and :func:`jit_train_step` the step over
-DTensors (nothing is compiled: the name is the reference's). The dense
-family only: training the MoE, Mamba, RWKV, enc-dec and VLM
-configs (their gradient parity, Mamba's chunked checkpoint, frontend
-batches) waits for ROADMAP Queue 1 item 11.
+DTensors (nothing is compiled: the name is the reference's). Every
+family of the configs trains: the MoE aux loss is part of the loss,
+Mamba and chunked RWKV checkpoint their time loops a chunk at a time,
+and whisper's and internvl2's batches carry ``"frontend"``. With
+microbatches the metrics are the reference's: ``ce`` is the mean total
+loss (aux included), ``z_loss`` and ``aux`` are 0.
 """
 from __future__ import annotations
 
@@ -78,11 +80,13 @@ def _split(x: torch.Tensor, n: int) -> tuple:
                  for c in shd.gather_dim(x, 0).chunk(n))
 
 
-def make_train_step(model: LM, opt: AdamW, microbatches: int = 1, *,
+def make_train_step(model: LM, opt: AdamW, microbatches: int = 1,
+                    rwkv_chunk: int | None = None, *,
                     marks: Callable[[str], None] | None = None,
                     microbatch_limit: int | None = None):
     """Returns train_step(params, opt_state, batch) -> (params,
     opt_state, metrics). Turns gradients on for ``model``'s parameters.
+    ``rwkv_chunk`` selects RWKV's chunked form (``LM.loss``).
 
     ``marks``, when given, is called with ``"forward"`` after each
     loss, ``"backward"`` after each gradient, ``"split"`` once the
@@ -93,15 +97,12 @@ def make_train_step(model: LM, opt: AdamW, microbatches: int = 1, *,
     many of the ``microbatches``, each still weighted 1/microbatches:
     the dry run counts one and scales it (``launch/hlo.py``).
     """
-    if model.cfg.family != "dense":
-        raise NotImplementedError(
-            f"{model.cfg.name}: training the {model.cfg.family} family "
-            "waits for ROADMAP Queue 1 item 11")
     model.requires_grad_(True)
     mark = marks or (lambda _: None)
 
     def grad_fn(own: dict, batch: dict):
-        loss, metrics = model.loss(batch, attention="plain")
+        loss, metrics = model.loss(batch, attention="plain",
+                                   rwkv_chunk=rwkv_chunk)
         mark("forward")
         grads = torch.autograd.grad(loss, list(own.values()))
         grads = [_placed_like(g, p) for g, p in zip(grads, own.values())]
@@ -202,8 +203,8 @@ def distribute_model(model: LM, mesh, p_shard: dict) -> None:
 
 def jit_train_step(model: LM, opt: AdamW, mesh,
                    rules: Mapping[str, Any] | None = None,
-                   microbatches: int = 1, *,
-                   marks: Callable[[str], None] | None = None,
+                   microbatches: int = 1, rwkv_chunk: int | None = None,
+                   *, marks: Callable[[str], None] | None = None,
                    microbatch_limit: int | None = None):
     """The train step on ``mesh``: ``model``'s parameters become
     DTensors of :func:`train_shardings`' placements (in place), each
@@ -222,5 +223,6 @@ def jit_train_step(model: LM, opt: AdamW, mesh,
     distribute_model(model, mesh, p_sh)
     model.param_gather = gather_for_compute
     step = make_train_step(model, opt, microbatches=microbatches,
-                           marks=marks, microbatch_limit=microbatch_limit)
+                           rwkv_chunk=rwkv_chunk, marks=marks,
+                           microbatch_limit=microbatch_limit)
     return shd.bound_to(step, mesh, rules), (p_sh, o_sh, b_sh)

@@ -2,7 +2,10 @@
 package's (``repro.data.pipeline``): its numpy threefry2x32 and the
 draws on top of it give ``jax.random``'s key words, bits and values, and
 ``lm_batch``/``packed_batch`` the reference's token ids and labels, bit
-for bit (exact equality, no tolerance)."""
+for bit (exact equality, no tolerance). ``normal`` and ``frontend_batch``
+are bit-equal to ``jax.random.normal`` too: XLA's erf_inv, log1p and log
+in float32 with its fused multiply-adds (numpy's own log1p alone would
+leave up to 3 ulp)."""
 import numpy as np
 import pytest
 
@@ -98,8 +101,45 @@ def test_data_deterministic_and_stateless():
 
 
 def test_frontend_batches_wait_for_item_7():
-    cfg = get_reduced("internvl2-2b")
-    dcfg = data.DataConfig(seq_len=16, global_batch=2, vocab=cfg.vocab)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        data.batch_for(dcfg, 0, cfg)
+    """Item 7's frontends: batch_for adds internvl2's patches and
+    whisper's frames, the reference's bit for bit."""
+    for arch in ("internvl2-2b", "whisper-tiny"):
+        cfg = get_reduced(arch)
+        kw = dict(seq_len=16, global_batch=2, vocab=cfg.vocab, packed=True)
+        got = data.batch_for(data.DataConfig(**kw), 3, cfg)
+        ref = rdata.batch_for(rdata.DataConfig(**kw), 3,
+                              r_get_reduced(arch))
+        assert set(got) == set(ref) == {"tokens", "labels", "frontend"}
+        fe = cfg.frontend
+        assert got["frontend"].dtype == torch.float32
+        assert got["frontend"].shape == (2, fe.n_positions, fe.d_frontend)
+        for k in got:
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]))
+
+
+@pytest.mark.parametrize("shape", [(1,), (3, 7), (2, 1500, 384),
+                                   (1000, 999)])
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1])
+def test_normal_gives_jax_values_bit_for_bit(seed, shape):
+    """Whisper-tiny's full frontend (2 x 1,500 x 384) among the shapes:
+    about a million draws, every float32 bit equal."""
+    k = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+    got = prng.normal(prng.fold_in(prng.key(seed), 3), shape)
+    ref = np.asarray(jax.random.normal(k, shape))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+
+
+def test_erf_inv_edges_and_log1p_branches():
+    """erf_inv(+-1) is +-inf, erf_inv(0) is 0, and near 1 (w >= 5, the
+    second polynomial) and across log1p's switch at sqrt(2) - 1 the
+    values are XLA's."""
+    import jax.numpy as jnp
+
+    x = np.array([-1.0, 0.0, 1.0, 0.5, 0.64359, 0.6436, 0.99, 0.99999,
+                  -0.999999, 1e-30], np.float32)
+    got = prng.erf_inv(x)
+    ref = np.asarray(jax.jit(jax.lax.erf_inv)(jnp.asarray(x)))
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+    assert np.isinf(got[[0, 2]]).all() and got[1] == 0.0
 
