@@ -275,3 +275,13 @@ def apply_features(graph: Graph, schedules: list[Schedule],
         X[:, stream_cols] = (S[:, gu] == S[:, gv]).astype(np.int8)
 
     return X
+
+
+def featurize_like(graph: Graph, schedules: list[Schedule],
+                   reference: FeatureMatrix) -> np.ndarray:
+    """Feature values for new schedules in an existing feature basis.
+
+    Table V's evaluation: classify the whole space with a tree trained
+    on an MCTS subset, whose feature pruning defined the basis.
+    """
+    return apply_features(graph, schedules, reference.features)

@@ -27,7 +27,8 @@ from __future__ import annotations
 
 from repro_torch.core.costmodel import Machine
 from repro_torch.core.dag import Graph
-from repro_torch.engine.base import BatchEvaluator, EvaluatorBase
+from repro_torch.engine.base import (BatchEvaluator, EvalBatch, EvaluatorBase,
+                                     canonical_key)
 from repro_torch.engine.params import KernelWallclockEvaluator
 from repro_torch.engine.pool import PoolEvaluator
 from repro_torch.engine.rpc import (RpcError, RpcEvaluator, RpcHandshakeError,
@@ -37,7 +38,7 @@ from repro_torch.engine.vectorized import (GraphTables, VectorizedEvaluator,
                                            simulate_batch, simulate_encoded)
 from repro_torch.engine.wallclock import (ExecutorEvaluator,
                                           assert_outputs_close,
-                                          reference_schedule)
+                                          demo_spmv_impls, reference_schedule)
 from repro_torch.space.base import DesignSpace, as_space
 from repro_torch.space.params import ParamSpace
 
@@ -102,10 +103,12 @@ def make_evaluator(graph: "Graph | DesignSpace", backend: str = "wallclock",
 
 
 __all__ = ["BACKENDS", "make_evaluator", "register_backend",
-           "EvaluatorBase", "BatchEvaluator", "VectorizedEvaluator",
+           "EvaluatorBase", "BatchEvaluator", "EvalBatch", "canonical_key",
+           "VectorizedEvaluator",
            "GraphTables", "simulate_batch", "simulate_encoded",
            "PoolEvaluator", "RpcEvaluator", "RpcError", "RpcHandshakeError",
            "RpcProtocolError", "EvalServer", "ServerProcess",
            "spawn_server_process", "EvalStore", "store_fingerprint",
            "ExecutorEvaluator", "KernelWallclockEvaluator",
-           "assert_outputs_close", "reference_schedule", "Machine"]
+           "assert_outputs_close", "demo_spmv_impls", "reference_schedule",
+           "Machine"]

@@ -53,6 +53,7 @@ from repro_torch.core.costmodel import Machine
 from repro_torch.core.dag import Graph
 from repro_torch.engine.store import EvalStore
 from repro_torch.space.base import DesignSpace, as_space
+from repro_torch.space.schedule import canonical_key  # noqa: F401 (re-export)
 
 
 def _noise_gauss(noise_seed: int, key: bytes, draw: int) -> float:

@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.core.bench import measure_cuda
 from repro_torch.core.dag import BoundOp, Graph, OpKind, Schedule
-from repro_torch.core.executor import OpImpl, build_runner
+from repro_torch.core.executor import OpImpl, build_runner, op_impl
 from repro_torch.device import platform_string, resolve_device
 from repro_torch.engine.base import EvaluatorBase
 from repro_torch.kernels.build import source_hash
@@ -203,3 +203,43 @@ class ExecutorEvaluator(EvaluatorBase):
             self.check(run, f"schedule {[str(i) for i in sched.items]}")
             out.append(statistics.median(self.measure(run)))
         return out
+
+
+def demo_spmv_impls(graph: Graph, n: int = 16, seed: int = 0,
+                    device: "str | torch.device | None" = None
+                    ) -> tuple[dict, dict]:
+    """(impls, env) realizing the coarse SpMV DAG with tiny dense ops.
+
+    The JAX package's demo: small enough that a wall-clock search of
+    every schedule takes seconds; the dataflow (pack -> send ->
+    recv-wait -> remote multiply) follows the DAG, so the value gate
+    is meaningful. ``AL``, ``AR`` and ``xL`` are drawn by
+    ``np.random.default_rng(seed).normal`` in the JAX package's order
+    and rounded to float32, so both packages hold the same bits; the
+    products are ``torch.matmul``. On a card the receive buffer is
+    allocated once, here, and WaitRecv, a host wait, returns once its
+    sum is on the card: a CPU op's device work runs on the current
+    stream, which no sync item orders before yR.
+    """
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    AL, AR, xL = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                  .to(dev) for s in ((n, n), (n, n), (n,)))
+    recvbuf = torch.zeros(n, dtype=torch.float32, device=dev)
+
+    def wait_recv(wire: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
+        xR = wire + recv
+        if xR.is_cuda:
+            torch.cuda.current_stream(xR.device).synchronize()
+        return xR
+
+    impls = {
+        "Pack": op_impl(lambda x: x * 1.0, ["xL"], ["sendbuf"]),
+        "PostSend": op_impl(lambda b: b, ["sendbuf"], ["wire"]),
+        "PostRecv": op_impl(lambda: recvbuf, [], ["recvbuf"]),
+        "WaitSend": op_impl(lambda w: w, ["wire"], ["sent"]),
+        "WaitRecv": op_impl(wait_recv, ["wire", "recvbuf"], ["xR"]),
+        "yL": op_impl(lambda x: AL @ x, ["xL"], ["yL"]),
+        "yR": op_impl(lambda x: AR @ x, ["xR"], ["yR"]),
+    }
+    return impls, {"xL": xL}

@@ -16,10 +16,15 @@ dependency points search -> rules.
 """
 from repro_torch.rules.boost import (GradientBoostedSurrogate,
                                      OnlineSurrogateBase)
-from repro_torch.rules.labels import Labeling, label_times
+from repro_torch.rules.labels import (Labeling, find_peaks, label_times,
+                                      peak_prominences, peak_prominences_loop,
+                                      step_convolve)
 from repro_torch.rules.pipeline import RuleReport, distill
-from repro_torch.rules.rulesets import (Rule, RuleSet, extract_rulesets,
-                                        render_rules_table, rules_by_class)
+from repro_torch.rules.rulesets import (Rule, RuleSet, annotate_vs_canonical,
+                                        class_range_accuracy,
+                                        class_range_accuracy_loop,
+                                        extract_rulesets, render_rules_table,
+                                        rules_by_class)
 from repro_torch.rules.trees import (ClassCountHistogram, DecisionTree,
                                      HistogramGrower, Presort,
                                      RegressionTree, TreeSearchTrace,
@@ -27,8 +32,11 @@ from repro_torch.rules.trees import (ClassCountHistogram, DecisionTree,
                                      fit_from_histograms)
 
 __all__ = ["GradientBoostedSurrogate", "OnlineSurrogateBase", "Labeling",
-           "label_times", "RuleReport", "distill", "Rule", "RuleSet",
-           "extract_rulesets", "render_rules_table", "rules_by_class",
+           "find_peaks", "label_times", "peak_prominences",
+           "peak_prominences_loop", "step_convolve", "RuleReport", "distill",
+           "Rule", "RuleSet", "annotate_vs_canonical", "class_range_accuracy",
+           "class_range_accuracy_loop", "extract_rulesets",
+           "render_rules_table", "rules_by_class",
            "ClassCountHistogram", "DecisionTree", "HistogramGrower",
            "Presort", "RegressionTree", "TreeSearchTrace", "algorithm1",
            "algorithm1_from_histograms", "fit_from_histograms"]

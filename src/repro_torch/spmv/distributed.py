@@ -22,7 +22,10 @@ the stacked halo buffer, once, at set-up. The DAG's vertices
     yL        ELL SpMV kernel over the local parts
     yR        ELL SpMV kernel over the halo parts
 
-and y = yL + yR. Both products read the sorted-slice layout
+and y = yL + yR. :func:`make_distributed_spmv` runs one of the JAX
+package's two orderings (:func:`ordering`): the local multiply issued
+while the halo copies are in flight, or after the remote one. Both
+products read the sorted-slice layout
 (:func:`repro_torch.kernels.spmv.ops.sliced_operands`), its CTAs' row
 blocks dealt out rank by rank (:func:`~repro_torch.kernels.spmv.ops.
 deal_blocks`), built once at set-up with a permutation of its own for
@@ -41,15 +44,16 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.dag import spmv_dag
+from repro_torch.core.dag import (BoundOp, Graph, OpKind, Schedule,
+                                  spmv_dag, validate_schedule)
 from repro_torch.core.executor import OpImpl, build_runner, op_impl
 from repro_torch.device import resolve_device
-from repro_torch.engine.wallclock import reference_schedule
-from repro_torch.kernels.pack.ops import pack
+from repro_torch.kernels.pack.ops import pack, pack_plain
 from repro_torch.kernels.spmv.kernel import SLICE_ROWS
 from repro_torch.kernels.spmv.ops import (BLOCK_N, WINDOW, SlicedEll,
                                           check_permutation, deal_blocks,
-                                          sliced_matvec, sliced_operands)
+                                          ell_spmv_plain, sliced_matvec,
+                                          sliced_operands)
 from repro_torch.spmv.matrix import RankPartition, stack_partitions
 
 
@@ -58,15 +62,19 @@ class DistributedSpmv:
 
     Build it with :func:`from_reference`. ``x`` is the input the ops
     read; ``sendbuf``, ``halo``, ``yL`` and ``yR`` are written by them.
+    With ``use_kernel=False`` Pack, yL and yR run the kernels' plain
+    PyTorch versions on the same operands and device (the JAX package's
+    ``ell_matvec_ref``); on the CPU both take the plain versions.
     """
 
     def __init__(self, local: SlicedEll, remote: SlicedEll,
-                 x: torch.Tensor, n_ranks: int):
+                 x: torch.Tensor, n_ranks: int, use_kernel: bool = True):
         n, dev = x.numel(), x.device
         for part in (local, remote):
             check_permutation(part.perm, n)
         self.device = dev
         self.n_ranks = n_ranks
+        self.use_kernel = use_kernel
         self.m = n // n_ranks
         self.local = local
         self.remote = remote
@@ -111,6 +119,8 @@ class DistributedSpmv:
 
     # -- the DAG's ops -------------------------------------------------------
     def pack(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.use_kernel:
+            return self.sendbuf.copy_(pack_plain(x, self.send_idx))
         return pack(x, self.send_idx, out=self.sendbuf)
 
     def post_send(self, sendbuf: torch.Tensor):
@@ -144,11 +154,18 @@ class DistributedSpmv:
         self.wait(done)
         return halo
 
+    def _matvec(self, a: SlicedEll, x: torch.Tensor,
+                out: torch.Tensor) -> torch.Tensor:
+        if not self.use_kernel:
+            return out.copy_(ell_spmv_plain(a.vals_t, a.cols_t, x, a.slice_k,
+                                             a.perm))
+        return sliced_matvec(a, x, out)
+
     def multiply_local(self, x: torch.Tensor) -> torch.Tensor:
-        return sliced_matvec(self.local, x, self.yL)
+        return self._matvec(self.local, x, self.yL)
 
     def multiply_remote(self, halo: torch.Tensor) -> torch.Tensor:
-        return sliced_matvec(self.remote, halo, self.yR)
+        return self._matvec(self.remote, halo, self.yR)
 
     def impls(self) -> dict[str, OpImpl]:
         """Op implementations for the vertices of ``spmv_dag()``."""
@@ -168,8 +185,8 @@ class DistributedSpmv:
 
 
 def from_reference(stacked: dict[str, np.ndarray], x: np.ndarray,
-                   device: "str | torch.device | None" = None
-                   ) -> DistributedSpmv:
+                   device: "str | torch.device | None" = None,
+                   use_kernel: bool = True) -> DistributedSpmv:
     """Device state from :func:`repro_torch.spmv.matrix.stack_partitions`'
     arrays (leading rank axis, the JAX package's shard_map layout) and
     the global x (R*m,). Each part is stacked K-major with rank-offset
@@ -196,33 +213,63 @@ def from_reference(stacked: dict[str, np.ndarray], x: np.ndarray,
 
     local = ell_t(stacked["local_vals"], stacked["local_cols"], m)
     remote = ell_t(stacked["remote_vals"], stacked["remote_cols"], 2 * m)
-    return DistributedSpmv(local, remote, torch.from_numpy(x).to(dev), r_n)
+    return DistributedSpmv(local, remote, torch.from_numpy(x).to(dev), r_n,
+                           use_kernel)
+
+
+def ordering(graph: Graph, overlap_local: bool = True) -> Schedule:
+    """The JAX package's two orderings of ``spmv_dag()`` (its
+    ``spmv_shard``), every GPU op on stream 0.
+
+    ``overlap_local``: yL is issued after PostSend and PostRecv and
+    before the waits, so the local multiply runs while the halo copies
+    are in flight (the paper's fast class). Otherwise the remote path
+    comes first: the waits, yR, then yL.
+    """
+    tail = (("yL", "WaitSend", "WaitRecv", "yR") if overlap_local
+            else ("WaitSend", "WaitRecv", "yR", "yL"))
+    sched = Schedule(tuple(
+        BoundOp(n, 0 if graph.ops[n].kind is OpKind.GPU else None)
+        for n in ("start", "Pack", "PostSend", "PostRecv", *tail, "end")))
+    validate_schedule(graph, sched)
+    return sched
 
 
 def make_distributed_spmv(parts: list[RankPartition],
-                          device: "str | torch.device | None" = None
+                          device: "str | torch.device | None" = None, *,
+                          use_kernel: bool = True,
+                          overlap_local: bool = True
                           ) -> Callable[[np.ndarray], np.ndarray]:
     """``run(x) -> y`` for the partitioned matrix: one direct SpMV step.
 
-    Runs the DAG's reference schedule (topological order, one stream)
-    through the executor and returns y = yL + yR on the host.
+    Runs :func:`ordering`'s schedule through the executor and returns
+    y = yL + yR on the host. ``use_kernel=False`` multiplies and packs
+    with the kernels' plain versions on ``device`` (the JAX package's
+    ``ell_matvec_ref``); otherwise a card launches the kernels, and one
+    that fails to build or launch raises. ``run.spmv`` is the device
+    state and ``run.step()`` one step on its ``x``, without the host
+    copies (what ``chip_smoke.py`` times).
     """
     r_n, m = len(parts), parts[0].m
     spmv = from_reference(stack_partitions(parts),
-                          np.zeros(r_n * m, np.float32), device)
+                          np.zeros(r_n * m, np.float32), device, use_kernel)
     g = spmv_dag()
-    runner = build_runner(g, reference_schedule(g), spmv.impls(),
+    runner = build_runner(g, ordering(g, overlap_local), spmv.impls(),
                           spmv.device)
     cuda = spmv.device.type == "cuda"
+
+    def step() -> dict:
+        return runner(spmv.env())
 
     def run(x: np.ndarray) -> np.ndarray:
         spmv.x.copy_(torch.from_numpy(
             np.asarray(x, dtype=np.float32).reshape(-1)))
         if cuda:
             torch.cuda.synchronize(spmv.device)
-        env = runner(spmv.env())
+        env = step()
         if cuda:
             torch.cuda.synchronize(spmv.device)
         return (env["yL"] + env["yR"]).cpu().numpy()
 
+    run.spmv, run.step = spmv, step
     return run

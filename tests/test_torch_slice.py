@@ -34,22 +34,33 @@ def problem():
     return A, x, partition(A, 4)
 
 
-def _jax_distributed_y(x_path, y_path):
-    """The JAX package's shard_map SpMV over 4 CPU devices, in a
-    subprocess (the device count is fixed before JAX starts)."""
+# (overlap_local, use_kernel): the JAX package's make_distributed_spmv
+# options, each also make_distributed_spmv's of the port.
+DIST_CASES = [(True, True), (True, False), (False, True), (False, False)]
+
+
+@pytest.fixture(scope="module")
+def jax_ys(problem, tmp_path_factory):
+    """The JAX package's shard_map SpMV over 4 CPU devices in each of
+    ``DIST_CASES``, from one subprocess (the device count is fixed
+    before JAX starts)."""
+    A, x, _ = problem
+    tmp = tmp_path_factory.mktemp("dist")
+    np.save(tmp / "x.npy", x)
     code = f"""
 import numpy as np, jax
 from jax.sharding import Mesh
 from repro.spmv.matrix import band_matrix, partition, stack_partitions
 from repro.spmv.distributed import make_distributed_spmv
 A = band_matrix(n={N}, nnz={NNZ}, half_bandwidth={HB}, seed=1)
-x = np.load({x_path!r})
+x = np.load({str(tmp / "x.npy")!r})
 st = stack_partitions(partition(A, 4))
 mesh = Mesh(np.array(jax.devices()[:4]), ("ranks",))
-run = make_distributed_spmv(mesh, use_kernel=True)
-y = run(st["local_vals"], st["local_cols"], st["remote_vals"],
-        st["remote_cols"], x.reshape(4, -1))
-np.save({y_path!r}, np.asarray(y).reshape(-1))
+for ol, uk in {DIST_CASES!r}:
+    run = make_distributed_spmv(mesh, use_kernel=uk, overlap_local=ol)
+    y = run(st["local_vals"], st["local_cols"], st["remote_vals"],
+            st["remote_cols"], x.reshape(4, -1))
+    np.save({str(tmp)!r} + f"/y_{{ol}}_{{uk}}.npy", np.asarray(y).reshape(-1))
 """
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
@@ -58,18 +69,33 @@ np.save({y_path!r}, np.asarray(y).reshape(-1))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=560)
     assert out.returncode == 0, out.stderr[-4000:]
+    return {c: np.load(tmp / f"y_{c[0]}_{c[1]}.npy") for c in DIST_CASES}
 
 
-def test_four_rank_spmv_matches_jax_shard_map(problem, tmp_path):
+def test_four_rank_spmv_matches_jax_shard_map(problem, jax_ys):
     A, x, parts = problem
-    np.save(tmp_path / "x.npy", x)
-    _jax_distributed_y(str(tmp_path / "x.npy"), str(tmp_path / "y.npy"))
-    y_jax = np.load(tmp_path / "y.npy")
+    y_jax = jax_ys[True, True]
     y = make_distributed_spmv(parts, device="cpu")(x)
     ref = A.matvec(x)
     scale = np.abs(ref).max()
     assert np.abs(y - y_jax).max() / scale < 1e-5
     assert np.abs(y - ref).max() / scale < 1e-5
+
+
+@pytest.mark.parametrize("overlap_local,use_kernel", DIST_CASES)
+def test_orderings_and_plain_route_match_jax_shard_map(
+        problem, jax_ys, overlap_local, use_kernel):
+    """Each of the JAX package's (overlap_local, use_kernel) cases
+    against the port's, within 1e-5 of max |y|."""
+    A, x, parts = problem
+    run = make_distributed_spmv(parts, "cpu", use_kernel=use_kernel,
+                                overlap_local=overlap_local)
+    y = run(x)
+    ref = jax_ys[overlap_local, use_kernel]
+    scale = np.abs(ref).max()
+    assert np.abs(y - ref).max() / scale < 1e-5
+    assert np.abs(y - A.matvec(x)).max() / scale < 1e-5
+    assert run.spmv.use_kernel is use_kernel
 
 
 def test_from_reference_layout(problem):
