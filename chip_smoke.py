@@ -1873,6 +1873,44 @@ def moe_drops(model, run) -> dict:
             "share_by_layer": [float(d) / n for d, n in seen]}
 
 
+def moe_combine_runs(model, batch, chunk) -> dict:
+    """How often the routed experts' combine product, (B, S, E*C) x
+    (B, E*C, d), runs in one plain-route loss and in its backward: a
+    dispatch mode counts the batched products of that signature. Each
+    MoE layer runs it once in the forward; its layer checkpoint's
+    recomputation (non-reentrant, stopping once the tensors the backward
+    saved are rebuilt) should not run it again (ROADMAP Queue 3 item
+    11)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models.moe import _capacity
+
+    cfg = model.cfg
+    ec = cfg.moe.n_experts * _capacity(batch["tokens"].shape[1], cfg.moe)
+    seen = {"forward": 0, "backward": 0}
+    where = ["forward"]
+
+    class Count(TorchDispatchMode):
+        # In the backward a recomputed forward op runs with grad enabled,
+        # a gradient's own product without (the dispatch's input
+        # gradient has the combine's signature too).
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._overloadpacket is torch.ops.aten.bmm and \
+                    args[0].shape[-1] == ec and \
+                    tuple(args[1].shape[-2:]) == (ec, cfg.d_model) and \
+                    torch.is_grad_enabled():
+                seen[where[0]] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        loss, _ = model.loss(batch, attention="plain", rwkv_chunk=chunk)
+        where[0] = "backward"
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    del grads
+    torch.cuda.synchronize()
+    return dict(seen, moe_layers=sum(d.moe for d in model.descs))
+
+
 def train_family_run(arch: str, dev) -> dict:
     """One configuration of the train_families phase (TRAIN_FAMILIES,
     not jamba's): make_train_step under AdamW on batch_for's batches
@@ -1962,9 +2000,12 @@ def train_family_run(arch: str, dev) -> dict:
     del ostate, params
     torch.cuda.empty_cache()
     drops = div = None
+    combine = None
     if cfg.moe is not None:
         with torch.no_grad():
             drops = moe_drops(model, lambda: model.loss(eval_batch))
+        if cfg.remat:
+            combine = moe_combine_runs(model, eval_batch, chunk)
     if run.get("profile"):
         div = route_divergence(model, eval_batch["tokens"].to(dev),
                                cfg.dtype)
@@ -1990,7 +2031,8 @@ def train_family_run(arch: str, dev) -> dict:
         "eval_flash_ms": ev[0].elapsed_time(ev[1]),
         "eval_plain_ms": ev[1].elapsed_time(ev[2]),
         "launches": launches, "causal_attention_layers": want_flash,
-        "route_divergence": div, "attn_tol": SERVE_ATTN_TOL["bfloat16"]}
+        "route_divergence": div, "attn_tol": SERVE_ATTN_TOL["bfloat16"],
+        "moe_combine_runs": combine}
     if s == SHAPES["train_4k"].seq_len:
         # 6 N D on the active parameters (the routed top-k of each MoE
         # layer) plus the causal attention term, for this step's tokens.
@@ -2015,6 +2057,11 @@ def train_family_run(arch: str, dev) -> dict:
             SERVE_ATTN_TOL["bfloat16"]:
         raise AssertionError(f"train_families {arch}: flash attention vs "
                              f"plain: {div['attn_rel_max']} of max |o|")
+    if combine is not None and (combine["backward"] or combine["forward"]
+                                != combine["moe_layers"]):
+        raise AssertionError(f"train_families {arch}: the MoE combine ran "
+                             f"{combine} times (once a MoE layer in the "
+                             "forward, never in the backward)")
     return res
 
 

@@ -168,6 +168,12 @@ def moe_mlp(p, x: torch.Tensor, cfg: ModelConfig,
     batch size, which for its one token a group is dropless.
     """
     mc = cfg.moe
+    # The shared experts go first, so that the routed experts' combine
+    # is the layer's last product: a checkpointed layer's recomputation
+    # (non-reentrant, it stops once the tensors the backward saved are
+    # rebuilt) then stops before it, as XLA drops a recomputed op whose
+    # result the backward does not read.
+    shared = mlp(p["shared"], x, cfg.mlp) if mc.n_shared else None
     logits = x @ p["router"].to(x.dtype)                    # (B,S,E)
     top_w, top_e, aux = _routing(logits, mc)
     if mc.dispatch == "einsum":
@@ -175,6 +181,6 @@ def moe_mlp(p, x: torch.Tensor, cfg: ModelConfig,
     else:
         y = _dispatch_gather(p, x, top_w, top_e, mc, cfg.mlp, capacity)
     y = y.to(x.dtype)
-    if mc.n_shared:
-        y = y + mlp(p["shared"], x, cfg.mlp)
+    if shared is not None:
+        y = y + shared
     return y, aux

@@ -26,10 +26,9 @@ def make_serve_step(model: LM):
 
     def serve_step(caches, tokens, pos):
         logits, caches = model.decode_step(tokens, pos, caches)
-        # On a mesh the vocab is gathered first: DTensor's argmax over a
-        # sharded dimension fails for a batch that is not sharded.
-        last = shd.gather_dim(logits[:, -1], 1)
-        return last.argmax(dim=-1)[:, None], logits, caches
+        # On a mesh each vocab shard's (max, index) pair is gathered,
+        # not the logit rows.
+        return shd.argmax(logits[:, -1], -1)[:, None], logits, caches
 
     return serve_step
 

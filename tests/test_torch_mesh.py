@@ -100,23 +100,39 @@ def work(rank, world, store, out):
         dtype="float32", param_dtype="float32")
     rules = rules_for(scfg, "decode", mesh)
     prompts = torch.from_numpy(rng.integers(0, 512, (8, 12))).int()
-    want = Engine(LM(scfg, device="cpu", seed=5), 32).generate(prompts, 6)
-    model = LM(scfg, device="cpu", seed=5)
-    p_sh, c_sh, tok_sh = serve_shardings(model, mesh, 8, 32, 0, rules)
-    distribute_model(model, mesh, p_sh)
-    prefill = shd.bound_to(
-        lambda t: model.prefill(t, 32, attention="plain"), mesh, rules)
-    step = shd.bound_to(make_serve_step(model), mesh, rules)
-    logits, caches = prefill(place(prompts, mesh, tok_sh))
-    tok = shd.gather_dim(logits[:, -1], 1).argmax(-1)[:, None]
-    got = [tok]
-    for i in range(5):
-        tok, _, caches = step(caches, tok, 12 + i)
-        got.append(tok)
-    res["serve"] = {
-        "want": want.tolist(),
-        "got": torch.cat([t.full_tensor() for t in got], 1).tolist(),
-        "cache_placements": str(tuple(caches[0]["k"].placements))}
+
+    def tie_shards(model):
+        # Every vocab shard's head columns equal the first shard's: each
+        # row's maximum is reached once in each of the 4 model-axis
+        # shards, and the lowest index (the first shard's) must win.
+        res["vocab"] = dict(model.named_parameters())[
+            "embed.lm_head"].shape[1]
+        with torch.no_grad():
+            h = dict(model.named_parameters())["embed.lm_head"]
+            n = h.shape[1] // 4
+            for i in range(1, 4):
+                h[:, i * n:(i + 1) * n] = h[:, :n]
+        return model
+
+    for key, prep in (("serve", lambda m: m), ("serve_ties", tie_shards)):
+        want = Engine(prep(LM(scfg, device="cpu", seed=5)), 32).generate(
+            prompts, 6)
+        model = prep(LM(scfg, device="cpu", seed=5))
+        p_sh, c_sh, tok_sh = serve_shardings(model, mesh, 8, 32, 0, rules)
+        distribute_model(model, mesh, p_sh)
+        prefill = shd.bound_to(
+            lambda t: model.prefill(t, 32, attention="plain"), mesh, rules)
+        step = shd.bound_to(make_serve_step(model), mesh, rules)
+        logits, caches = prefill(place(prompts, mesh, tok_sh))
+        tok = shd.argmax(logits[:, -1])[:, None]
+        got = [tok]
+        for i in range(5):
+            tok, _, caches = step(caches, tok, 12 + i)
+            got.append(tok)
+        res[key] = {
+            "want": want.tolist(),
+            "got": torch.cat([t.full_tensor() for t in got], 1).tolist(),
+            "cache_placements": str(tuple(caches[0]["k"].placements))}
     with open(f"{out}/{rank}.json", "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
@@ -189,6 +205,16 @@ def test_sharded_decode_equals_engine_generate(ranks):
         assert res["serve"]["got"] == res["serve"]["want"]
     assert np.asarray(ranks[0]["serve"]["want"]).shape == (8, 6)
     assert "Shard" in ranks[0]["serve"]["cache_placements"]
+
+
+def test_sharded_decode_breaks_ties_across_shards_as_engine_generate(ranks):
+    """Each vocab shard holds the same maximum: the sharded serve step's
+    gathered (max, index) pairs keep the lowest index, as torch.argmax
+    (and XLA) do, so every token lies in the first of the 4 shards."""
+    for res in ranks:
+        assert res["serve_ties"]["got"] == res["serve_ties"]["want"]
+    want = np.asarray(ranks[0]["serve_ties"]["want"])
+    assert want.shape == (8, 6) and want.max() < ranks[0]["vocab"] // 4
 
 
 # -- the non-dense families' train step on the mesh --------------------------------
