@@ -109,11 +109,15 @@ Phases, each printing one JSON line:
                SERVE_ATTN_TOL of max |o|, else a failure) and how far
                the two routes' residual streams part; one
                prefill and one decode step under torch.profiler (device
-               ms by kernel, idle share; traces in chiprun_out/); the
-               flash kernel alone at the prefill's shape in bfloat16
-               against its plain version and SDPA, which are the
-               ``kernels`` line's flash_attention numbers (the autotune
-               shape's under ``at_autotune_shape``)
+               ms by kernel, idle share, the copy kernels by name;
+               traces in chiprun_out/); the flash kernel alone at the
+               prefill's shape in bfloat16 as served (40 q heads on the
+               projections' 8 kv heads, (B, S, H, D)) against its plain
+               version and SDPA with enable_gqa, which are the
+               ``kernels`` line's flash_attention numbers, and widened
+               (one kv head per q head, ``at_widened_shape``; the
+               autotune shape's under ``at_autotune_shape``). Also alone:
+               ``chip_smoke.py --serve``
   families     the five families the serve phase does not run, each at
                its config's full width through the same entry points
                (LM, Engine.generate), f32 weights drawn on the card from
@@ -673,12 +677,23 @@ def attention_inputs(dev, batch, heads, seq, head_dim, seed=0):
 # tests/test_kernels.py:118-156: causal sweep (ragged S, bf16, a head dim
 # padded to 64), cross-attention, decode alignment: (q shape, kv shape,
 # dtype, causal).
+# Then the bf16 route at each of those shapes, and grouped-query cases
+# (q heads on H / g kv heads, g = 5 and 2) in both dtypes.
 ATTN_SWEEP = [((2, 3, 256, 64), (2, 3, 256, 64), torch.float32, True),
               ((1, 2, 300, 64), (1, 2, 300, 64), torch.float32, True),
               ((2, 2, 256, 128), (2, 2, 256, 128), torch.bfloat16, True),
               ((1, 2, 64, 48), (1, 2, 64, 48), torch.float32, True),
               ((1, 2, 128, 64), (1, 2, 256, 64), torch.float32, False),
-              ((1, 1, 128, 64), (1, 1, 384, 64), torch.float32, True)]
+              ((1, 1, 128, 64), (1, 1, 384, 64), torch.float32, True),
+              ((2, 3, 256, 64), (2, 3, 256, 64), torch.bfloat16, True),
+              ((1, 2, 300, 64), (1, 2, 300, 64), torch.bfloat16, True),
+              ((1, 2, 64, 48), (1, 2, 64, 48), torch.bfloat16, True),
+              ((1, 2, 128, 64), (1, 2, 256, 64), torch.bfloat16, False),
+              ((1, 1, 128, 64), (1, 1, 384, 64), torch.bfloat16, True),
+              ((2, 10, 256, 128), (2, 2, 256, 128), torch.bfloat16, True),
+              ((1, 4, 300, 64), (1, 2, 300, 64), torch.bfloat16, True),
+              ((2, 10, 256, 128), (2, 2, 256, 128), torch.float32, True),
+              ((1, 4, 128, 64), (1, 2, 384, 64), torch.float32, True)]
 
 
 def sweep_inputs():
@@ -692,9 +707,12 @@ def sweep_inputs():
 
 def float64_attention(a, dtype, causal) -> torch.Tensor:
     """The sweep's oracle: a float64 softmax on the CPU of the inputs
-    ``a`` (q, k, v as float32 numpy arrays) rounded to ``dtype`` first,
-    scaled by the true head dim, causal mask right-aligned."""
+    ``a`` (q, k, v as float32 numpy arrays, (B, H, S, D), k and v with
+    H / g heads, q head h reading kv head h // g) rounded to ``dtype``
+    first, scaled by the true head dim, causal mask right-aligned."""
     q, k, v = (torch.from_numpy(t).to(dtype).double() for t in a)
+    g = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(g, dim=1) for t in (k, v))
     s = q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5
     if causal:
         sq, skv = s.shape[-2:]
@@ -1027,18 +1045,26 @@ def phase_autotune(dev) -> dict:
     return out
 
 
+COPY_WORDS = ("copy", "index", "fill", "pad", "repeat", "cat")
+
+
 def kernel_summary(ks: dict, wall: float) -> dict:
     """A part of a profile: wall ms, device ms summed over kernels, the
     idle share, the flash kernel's ms, matrix products (kernels named
-    nvjet, gemm, xmma or cutlass: cuBLAS's) and the rest, and the six
-    largest kernels by name."""
+    nvjet, gemm, xmma or cutlass: cuBLAS's) and the rest, the six
+    largest kernels by name, and the copies (kernels whose names hold
+    one of ``COPY_WORDS``: what widening, transposing and padding
+    launch) by name."""
     busy = sum(ks.values())
-    flash = sum(t for k, t in ks.items() if "flash_fwd_kernel" in k)
+    flash = sum(t for k, t in ks.items() if "flash_fwd" in k)
     gemm = sum(t for k, t in ks.items() if any(
         w in k.lower() for w in ("gemm", "xmma", "cutlass", "nvjet")))
+    copies = {k: t for k, t in ks.items()
+              if any(w in k.lower() for w in COPY_WORDS)}
     return {"wall_ms": wall, "device_ms": busy,
             "idle_share": max(0.0, 1 - busy / wall), "flash_ms": flash,
             "gemm_ms": gemm, "other_ms": busy - flash - gemm,
+            "copy_ms": sum(copies.values()), "copies": copies,
             "top": {k: t for k, t in list(ks.items())[:6]}}
 
 
@@ -1196,49 +1222,70 @@ def phase_serve(dev) -> dict:
     diverge = {name: route_divergence(model, prompts, name)
                for name in SERVE_ATTN_TOL}
 
-    # The flash kernel alone at the prefill's shape, bfloat16.
-    h, d = cfg.n_heads, cfg.head_dim
+    # The flash kernel alone at the prefill's shape, bfloat16: as served
+    # (q and the output (B, S, 40, D), k and v (B, S, 8, D), as the
+    # projections leave them: q head h reads kv head h // 5 in the
+    # kernel) and widened (every head its own k and v, (BH, S, D)).
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = (t.to(torch.bfloat16) for t in attention_inputs(
         dev, b, h, s, d, seed=3))
-    qf, kf, vf = (t.reshape(b * h, s, d) for t in (q, k, v))
-    out = torch.empty_like(qf)
     scale = d ** -0.5
-
-    def kernel():
-        return fa_k.flash_attention(qf, kf, vf, out, causal=True,
-                                    block_q=128, block_k=128, scale=scale)
-
-    def plain():
-        return attention_plain(qf, kf, vf, causal=True, scale=scale)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
-
-    got = kernel().clone()
-    ref = plain()
-    k_err, k_rel = rel_err(got, ref)
-    if not k_err <= 3e-2:
-        raise AssertionError(f"flash_attention bf16: max abs err {k_err}")
     pairs = b * h * s * (s + 1) / 2
     flops = 4.0 * pairs * d
-    n_bytes = 4 * q.numel() * q.element_size()
-    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
-    flash = {
-        "op": "flash_attention", "shape": [b, h, s, d],
-        "dtype": "bfloat16", "causal": True, "block_q": 128,
-        "block_k": 128, "flops": flops, "bytes": n_bytes,
-        "max_abs_err": k_err, "rel_err": k_rel,
-        "ms": time_cuda(kernel, iters=20),
-        "plain_ms": time_cuda(plain, iters=5),
-        "library_ms": time_cuda(sdpa, iters=20),
-        "library_kernel": None,              # from the profile below
-        "library_max_abs_err": float(
-            (sdpa().reshape(b * h, s, d).float() - ref.float()).abs().max()),
-        "bound_ms": bnd, "bound_by": by,
-        # The kernel's own route: bf16 K and V are exact in TF32, so each
-        # product takes two TF32 MMAs (q's big and small parts).
-        "bound_ms_2xtf32": bound_ms(n_bytes, 2 * flops,
-                                    TF32_FLOPS_PER_S)[0]}
+
+    def flash_call(shape, qk, kk, vk, sdpa_args, sdpa_kw):
+        out = torch.empty_like(qk)
+
+        def kernel():
+            return fa_k.flash_attention(qk, kk, vk, out, causal=True,
+                                        block_q=128, block_k=128,
+                                        scale=scale)
+
+        def plain():
+            return attention_plain(qk, kk, vk, causal=True, scale=scale)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*sdpa_args,
+                                                  is_causal=True, **sdpa_kw)
+
+        got = kernel().clone()
+        ref = plain()
+        k_err, k_rel = rel_err(got, ref)
+        if not k_err <= 3e-2:
+            raise AssertionError(f"flash_attention bf16 {shape}: max abs "
+                                 f"err {k_err}")
+        lib = sdpa()                         # (B, H, S, D)
+        if len(shape) == 5:                  # served: (B, S, H, D) here
+            lib = lib.transpose(1, 2)
+        lib_err = float((lib.reshape(ref.shape).float() - ref.float())
+                        .abs().max())
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in (qk, kk, vk, out))
+        bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+        return {
+            "op": "flash_attention", "shape": shape, "dtype": "bfloat16",
+            "causal": True, "block_q": 128, "block_k": 128, "flops": flops,
+            "bytes": n_bytes, "max_abs_err": k_err, "rel_err": k_rel,
+            "ms": time_cuda(kernel, iters=20),
+            "plain_ms": time_cuda(plain, iters=5),
+            "library_ms": time_cuda(sdpa, iters=20),
+            "library_call": "scaled_dot_product_attention(is_causal=True"
+                            + "".join(f", {k}={v}" for k, v in
+                                      sdpa_kw.items()) + ")",
+            "library_kernel": None,          # from the profile below
+            "library_max_abs_err": lib_err,
+            "bound_ms": bnd, "bound_by": by}, sdpa
+
+    # Served: (B, S, H, D) buffers, the kernel's own layout.
+    qs = q.transpose(1, 2).contiguous()
+    ks, vs = (t[:, :hkv].transpose(1, 2).contiguous() for t in (k, v))
+    flash, sdpa_gqa = flash_call(
+        [b, s, h, hkv, d], qs, ks, vs,
+        [t.transpose(1, 2) for t in (qs, ks, vs)], {"enable_gqa": True})
+    qf, kf, vf = (t.reshape(b * h, s, d) for t in (q, k, v))
+    widened, sdpa_wide = flash_call([b, h, s, d], qf, kf, vf, [q, k, v], {})
+    flash["at_widened_shape"] = widened
+    del qs, ks, vs
 
     # Where the time goes: one prefill and one decode step profiled, and
     # SDPA's kernel named, in one profiler session.
@@ -1247,8 +1294,10 @@ def phase_serve(dev) -> dict:
     parts = traced_kernels(
         {"prefill": prefill,
          "decode_step": lambda: step(caches, tok, s + new - 2),
-         "sdpa": lambda: [sdpa() for _ in range(3)]}, trace)
+         "sdpa": lambda: [sdpa_gqa() for _ in range(3)],
+         "sdpa_widened": lambda: [sdpa_wide() for _ in range(3)]}, trace)
     flash["library_kernel"] = next(iter(parts.pop("sdpa")[0]))
+    widened["library_kernel"] = next(iter(parts.pop("sdpa_widened")[0]))
     prof = {k: kernel_summary(*v) for k, v in parts.items()}
     prof["trace"] = os.path.relpath(trace, ROOT)
     del caches
@@ -1297,7 +1346,7 @@ def kernel_classes(ks: dict, wall: float) -> dict:
            "other_elementwise_ms": 0.0}
     for k, t in ks.items():
         low = k.lower()
-        if "flash_fwd_kernel" in k:
+        if "flash_fwd" in k:
             cls["flash_ms"] += t
         elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
             cls["products_ms"] += t
@@ -3258,13 +3307,18 @@ def main() -> int:
         entry("pack", "src/repro_torch/csrc/pack.cu",
               "src/repro/kernels/pack/kernel.py:49", kern["pack"],
               "main_path", summed=timed),
-        entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        entry("flash_attention",
+              "src/repro_torch/csrc/flash_attention_bf16.cu",
               "src/repro/kernels/flash_attention/kernel.py:80",
               [fa], "serve",
+              source_float32="src/repro_torch/csrc/flash_attention.cu",
               shape=fa["shape"], dtype=fa["dtype"],
-              bound_ms_2xtf32=fa["bound_ms_2xtf32"],
+              library_call=fa["library_call"],
               library_kernel=fa["library_kernel"],
               library_max_abs_err=fa["library_max_abs_err"],
+              at_widened_shape={k: fa["at_widened_shape"][k] for k in (
+                  "shape", "ms", "plain_ms", "library_ms", "library_kernel",
+                  "bound_ms", "bound_by", "max_abs_err")},
               at_autotune_shape={k: fa_auto[k] for k in (
                   "shape", "dtype", "ms", "plain_ms", "library_ms",
                   "library_kernel", "bound_ms", "bound_by",
@@ -3282,7 +3336,25 @@ def main() -> int:
     return 0
 
 
+def serve_main() -> int:
+    """``--serve``: the serve phase alone (with the build), its JSON line
+    last."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.device import resolve_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(nvidia_smi_line(), flush=True)
+    emit("serve", **phase_serve(resolve_device()))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--serve"]:
+        sys.exit(serve_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--family":
         sys.exit(family_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--dist":

@@ -3,14 +3,19 @@
 Usage (from the repository root, one CUDA card):
 
     PYTHONPATH=src python examples/torch_flash_bench.py \
-        [--blocks 128x128 64x64 | --blocks all] [--sdpa] [--profile]
+        [--served] [--blocks 128x128 64x64 | --blocks all] [--sdpa] \
+        [--profile]
 
 At one attention layer of qwen2.5-32b (1 x 40 x 4096 x 128, float32,
 causal; ``chip_smoke.py``'s ``ATTN``) it prints one JSON line per
 (block_q, block_k): CUDA-event median ms (``chip_smoke.time_cuda``: L2
 flushed before each call) and max abs error against the plain version.
-``--sdpa`` adds ``scaled_dot_product_attention`` on the same inputs
-(its time and its max abs error against the plain version).
+``--served`` takes the serve phase's prefill instead: bfloat16, 4 x
+1,024 tokens, 40 q heads on qwen2.5-32b's 8 kv heads in the (B, S, H,
+D) layout the projections leave (the bf16 kernel; ``--blocks all`` is
+its four pairs). ``--sdpa`` adds ``scaled_dot_product_attention`` on
+the same inputs (with ``enable_gqa`` when served; its time and its max
+abs error against the plain version).
 ``--profile`` runs one kernel call and one SDPA call under
 ``torch.profiler`` and prints each device kernel's name, µs, registers,
 blocks and warps per SM and estimated occupancy (traces in
@@ -30,8 +35,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (ATTN, attention_inputs, nvidia_smi_line,  # noqa: E402
-                        time_cuda)
+from chip_smoke import (ATTN, SERVE, attention_inputs,  # noqa: E402
+                        nvidia_smi_line, time_cuda)
 
 BANK_CONFLICT_METRICS = [
     "smsp__sass_l1tex_data_bank_conflicts_pipe_lsu_mem_shared_op_ld.sum",
@@ -87,6 +92,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sdpa", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--served", action="store_true",
+                    help="bf16 at the serve phase's prefill, 40 q heads "
+                         "on 8 kv heads")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_flash_bench: needs a CUDA device", file=sys.stderr)
@@ -98,15 +106,32 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(nvidia_smi_line(), flush=True)
-    b, h, s, d = (ATTN[k] for k in ("batch", "heads", "seq", "head_dim"))
-    q, k, v = attention_inputs(torch.device("cuda"), b, h, s, d)
-    qf, kf, vf = (t.reshape(b * h, s, d) for t in (q, k, v))
+    dev = torch.device("cuda")
+    if args.served:
+        from repro_torch.configs import get_config
+        cfg = get_config(SERVE["arch"])
+        b, s, h, d = SERVE["batch"], SERVE["prompt"], cfg.n_heads, \
+            cfg.head_dim
+        hkv = cfg.n_kv_heads
+        q, k, v = (t.to(torch.bfloat16) for t in attention_inputs(
+            dev, b, h, s, d, seed=3))
+        qf = q.transpose(1, 2).contiguous()              # (B, S, H, D)
+        kf, vf = (t[:, :hkv].transpose(1, 2).contiguous() for t in (k, v))
+        q, k, v = (t.transpose(1, 2) for t in (qf, kf, vf))
+        sdpa_kw = {"enable_gqa": True}
+        grid_pairs = list(fa_k.BF16_BLOCKS)
+    else:
+        b, h, s, d = (ATTN[k] for k in ("batch", "heads", "seq",
+                                        "head_dim"))
+        q, k, v = attention_inputs(dev, b, h, s, d)
+        qf, kf, vf = (t.reshape(b * h, s, d) for t in (q, k, v))
+        sdpa_kw = {}
+        grid = (16, 32, 64, 128)
+        grid_pairs = [(bq, bk) for bq in grid for bk in grid]
     out = torch.empty_like(qf)
     scale = d ** -0.5
     plain = attention_plain(qf, kf, vf, causal=True, scale=scale)
-    grid = (16, 32, 64, 128)
-    pairs = ([(bq, bk) for bq in grid for bk in grid]
-             if args.blocks == ["all"] else
+    pairs = (grid_pairs if args.blocks == ["all"] else
              [tuple(int(x) for x in p.split("x")) for p in args.blocks])
 
     def kernel(bq, bk):
@@ -116,13 +141,20 @@ def main(argv=None) -> int:
 
     for bq, bk in pairs:
         fn = kernel(bq, bk)
-        err = float((fn() - plain).abs().max())
+        err = float((fn().float() - plain.float()).abs().max())
         print(json.dumps({"block_q": bq, "block_k": bk,
+                          "dtype": str(qf.dtype).split(".")[-1],
                           "ms": time_cuda(fn, iters=args.iters),
                           "max_abs_err": err}), flush=True)
-    sdpa = (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              **sdpa_kw)
+
     if args.sdpa:
-        err = float((sdpa().reshape(b * h, s, d) - plain).abs().max())
+        lib = sdpa().transpose(1, 2) if args.served else sdpa()
+        err = float((lib.reshape(plain.shape).float() - plain.float())
+                    .abs().max())
         print(json.dumps({"sdpa_ms": time_cuda(sdpa, iters=args.iters),
                           "sdpa_max_abs_err": err}), flush=True)
     if args.profile:

@@ -1,9 +1,16 @@
-// Forward attention with online softmax ("flash" attention):
-//   o[bh, i] = sum_j softmax_j(scale * q[bh, i] . k[bh, j]) v[bh, j]
+// Forward attention with online softmax ("flash" attention), float32,
+// grouped-query heads:
+//   o[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h / g])
+//                v[b, j, h / g]
 // with right-aligned causal masking (query i sees keys j <= i + Skv - Sq).
+// q and o are (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), g = Hq / Hkv, each
+// read and written at the element strides the caller gives (D
+// contiguous): the model's projections as they lie, no copy, no widening.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py:flash_attention
-// (body _flash_body). It computes what that kernel computes: running max
+// (body _flash_body) for float32 inputs; bfloat16 inputs have a kernel of
+// their own (csrc/flash_attention_bf16.cu). It computes what that kernel
+// computes: running max
 // m, running sum l and the accumulator in float32, masked keys with
 // probability 0 (the running max never falls below -1e30, so
 // exp(m_prev - m_new) is never NaN), and o = acc / max(l, 1e-30) in q's
@@ -24,7 +31,8 @@
 // the dense TF32 rate). A single TF32 pass is ~1e-3 off at D = 128
 // (tests/test_torch_attention.py emulates both).
 //
-// Design. One CTA per (bh, block_q query rows), one warp per 16 rows.
+// Design. One CTA per (b, q head, block_q query rows), one warp per 16
+// rows.
 // Shared memory holds the Q tile (scaled by scale * log2(e), so the
 // softmax takes exp2), one K tile and one V tile of BK rows, float32,
 // rows padded to D+4 words: (block_q + 2 BK) (D + 4) 4 bytes, 202.8 KB
@@ -50,15 +58,9 @@
 // block_k is a template (16, 32, 64, 128: the score tile lives in
 // registers), as is the head dim (64 or 128, ops.py pads to it);
 // block_q is a runtime argument.
-// bf16 inputs take the same path (converted to float32 on load); their
-// K and V are exact in TF32, so the MMAs with their small parts are
-// skipped.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -94,36 +96,28 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
 
 // d += a b in 3xTF32, a given split (big ab, small as), b as two floats.
 // The small products go first so that they are not lost against the
-// big one. B_EXACT: b is exact in TF32 (bf16 inputs), its small part is
-// zero and that MMA is skipped.
-template <bool B_EXACT>
+// big one.
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
                                      const uint32_t (&as)[4], float b0,
                                      float b1) {
-  if (B_EXACT) {
-    const uint32_t bb0 = __float_as_uint(b0), bb1 = __float_as_uint(b1);
-    mma(d, as, bb0, bb1);
-    mma(d, ab, bb0, bb1);
-  } else {
-    uint32_t bb0, bs0, bb1, bs1;
-    split(b0, bb0, bs0);
-    split(b1, bb1, bs1);
-    mma(d, as, bb0, bb1);
-    mma(d, ab, bs0, bs1);
-    mma(d, ab, bb0, bb1);
-  }
+  uint32_t bb0, bs0, bb1, bs1;
+  split(b0, bb0, bs0);
+  split(b1, bb1, bs1);
+  mma(d, as, bb0, bb1);
+  mma(d, ab, bs0, bs1);
+  mma(d, ab, bb0, bb1);
 }
 
-// rows x D of global memory (rows of D elements) into shared rows of
-// D + 4 floats, times mul, with 16-byte loads.
+// rows x D of global memory (rows ld elements apart) into shared rows
+// of D + 4 floats, times mul, with 16-byte loads.
 template <int D>
 __device__ __forceinline__ void copy_rows(float* dst, const float* src,
-                                          int rows, float mul, int tid,
-                                          int nthr) {
+                                          int ld, int rows, float mul,
+                                          int tid, int nthr) {
   constexpr int C = D / 4;
   for (int i = tid; i < rows * C; i += nthr) {
     const int r = i / C, c = i - r * C;
-    float4 x = *reinterpret_cast<const float4*>(src + r * D + 4 * c);
+    float4 x = *reinterpret_cast<const float4*>(src + r * ld + 4 * c);
     x.x *= mul;
     x.y *= mul;
     x.z *= mul;
@@ -132,54 +126,22 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src,
   }
 }
 
-__device__ __forceinline__ float lo_bf16(uint32_t x) {
-  return __uint_as_float(x << 16);      // bfloat16 is a float32's top half
-}
-
-__device__ __forceinline__ float hi_bf16(uint32_t x) {
-  return __uint_as_float(x & 0xffff0000u);
-}
-
-template <int D>
-__device__ __forceinline__ void copy_rows(float* dst, const uint16_t* src,
-                                          int rows, float mul, int tid,
-                                          int nthr) {
-  constexpr int C = D / 8;
-  for (int i = tid; i < rows * C; i += nthr) {
-    const int r = i / C, c = i - r * C;
-    const uint4 u = *reinterpret_cast<const uint4*>(src + r * D + 8 * c);
-    float* d = dst + r * (D + 4) + 8 * c;
-    *reinterpret_cast<float4*>(d) =
-        make_float4(lo_bf16(u.x) * mul, hi_bf16(u.x) * mul,
-                    lo_bf16(u.y) * mul, hi_bf16(u.y) * mul);
-    *reinterpret_cast<float4*>(d + 4) =
-        make_float4(lo_bf16(u.z) * mul, hi_bf16(u.z) * mul,
-                    lo_bf16(u.w) * mul, hi_bf16(u.w) * mul);
-  }
-}
-
-// A K or V tile into shared memory: float32 with cp.async (16 bytes a
-// copy, L2 only), to be waited for with cp_async_wait_all; bf16 with
-// loads that convert on the way.
+// A K or V tile into shared memory with cp.async (16 bytes a copy, L2
+// only), to be waited for with cp_async_wait_all.
 template <int D>
 __device__ __forceinline__ void fetch_rows(float* dst, const float* src,
-                                           int rows, int tid, int nthr) {
+                                           int ld, int rows, int tid,
+                                           int nthr) {
   constexpr int C = D / 4;
   for (int i = tid; i < rows * C; i += nthr) {
     const int r = i / C, c = i - r * C;
     const uint32_t to = static_cast<uint32_t>(
         __cvta_generic_to_shared(dst + r * (D + 4) + 4 * c));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(to),
-                 "l"(src + r * D + 4 * c)
+                 "l"(src + r * ld + 4 * c)
                  : "memory");
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int D>
-__device__ __forceinline__ void fetch_rows(float* dst, const uint16_t* src,
-                                           int rows, int tid, int nthr) {
-  copy_rows<D>(dst, src, rows, 1.0f, tid, nthr);
 }
 
 // This thread's cp.async copies have landed (a __syncthreads after it
@@ -200,20 +162,30 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-__device__ __forceinline__ void store2(uint16_t* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
+// Element strides of a (B, S, H, D) operand; D is contiguous.
+struct Strides {
+  long long b, s, h;
+};
 
-template <typename T, int D, int BK>
+// One launch: B x heads q heads in blocks of block_q rows; q head h
+// reads kv head h / group.
+struct Geometry {
+  int heads, group, n_qb, Sq, Skv, block_q, causal;
+  float scale;
+  Strides q, k, v, o;
+};
+
+template <int D, int BK>
 __global__ void __launch_bounds__(kMaxThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int n_qb,
-                     int Sq, int Skv, int block_q, int causal,
-                     float scale) {
+    flash_fwd_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     const Geometry geo) {
+  const int n_qb = geo.n_qb, Sq = geo.Sq, Skv = geo.Skv;
+  const int block_q = geo.block_q, causal = geo.causal;
   constexpr int LD = D + 4;             // shared row stride, in floats
   constexpr int NK = BK / 8;            // 8-key groups of a tile
   constexpr int ND = D / 8;             // 8-dim groups of a row
-  constexpr bool kExact = !std::is_same<T, float>::value;
   // Unrolling the S loop over D whole helps up to 64 keys a tile; at 128
   // it costs more than it gives (measured on the H100).
   constexpr int kSUnroll = BK <= 64 ? ND : 2;
@@ -226,21 +198,27 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int nthr = blockDim.x;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x / n_qb;
+  const int b = bh / geo.heads, h = bh - b * geo.heads;
+  const int hk = h / geo.group;
   // Heavy (late, causal) query blocks first: a shorter tail.
   const int qb = n_qb - 1 - blockIdx.x % n_qb;
   const int q0 = qb * block_q;
   const int q_offset = Skv - Sq;
-  const size_t qoff = (static_cast<size_t>(bh) * Sq + q0) * D;
-  const T* kb = k + static_cast<size_t>(bh) * Skv * D;
-  const T* vb = v + static_cast<size_t>(bh) * Skv * D;
+  const float* qrow = q + b * geo.q.b + h * geo.q.h + q0 * geo.q.s;
+  const float* kb = k + b * geo.k.b + hk * geo.k.h;
+  const float* vb = v + b * geo.v.b + hk * geo.v.h;
+  // Row strides inside a tile (the host checks that a tile's rows are
+  // within 2^31 elements of its first).
+  const int q_ld = static_cast<int>(geo.q.s), k_ld = static_cast<int>(geo.k.s),
+            v_ld = static_cast<int>(geo.v.s);
 
   int n_tiles = Skv / BK;
   if (causal) {
     const int last = q0 + block_q - 1 + q_offset;   // largest query position
     n_tiles = last < 0 ? 0 : min(n_tiles, last / BK + 1);
   }
-  if (n_tiles > 0) fetch_rows<D>(Ks, kb, BK, tid, nthr);
-  copy_rows<D>(Qs, q + qoff, block_q, scale * kLog2e, tid, nthr);
+  if (n_tiles > 0) fetch_rows<D>(Ks, kb, k_ld, BK, tid, nthr);
+  copy_rows<D>(Qs, qrow, q_ld, block_q, geo.scale * kLog2e, tid, nthr);
 
   const int r0 = warp * kRowsPerWarp;   // the warp's first row in the tile
   const int qpos = q0 + r0 + g + q_offset;  // position of row g (g+8: +8)
@@ -255,7 +233,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int k0 = it * BK;
     cp_async_wait_all();
     __syncthreads();                    // K(it) and Q in place; V(it-1) used
-    fetch_rows<D>(Vs, vb + static_cast<size_t>(k0) * D, BK, tid, nthr);
+    fetch_rows<D>(Vs, vb + k0 * geo.v.s, v_ld, BK, tid, nthr);
 
     // Keys of this tile that the warp's last row sees (all if not causal).
     const int live = causal ? min(BK, qlast - k0 + 1) : BK;
@@ -277,7 +255,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
         for (int j = 0; j < NK; ++j) {
           const float* kr = Kw + 8 * j * LD + 8 * kk;
-          mma3<kExact>(s[j], ab, as, kr[0], kr[4]);
+          mma3(s[j], ab, as, kr[0], kr[4]);
         }
       }
       // The causal mask, only where the tile crosses the diagonal.
@@ -322,8 +300,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     cp_async_wait_all();
     __syncthreads();                    // V(it) in place; K(it) used
     if (it + 1 < n_tiles)
-      fetch_rows<D>(Ks, kb + static_cast<size_t>(k0 + BK) * D, BK, tid,
-                    nthr);
+      fetch_rows<D>(Ks, kb + (k0 + BK) * geo.k.s, k_ld, BK, tid, nthr);
 
     if (live > 0) {
       // O += P V, 8 keys a step; slot t is key 2t, slot t + 4 key 2t + 1.
@@ -346,7 +323,7 @@ __global__ void __launch_bounds__(kMaxThreads)
             const float* vr = Vw + 8 * kk * LD + 8 * (ND / 2) * h;
 #pragma unroll
             for (int j = 0; j < ND / 2; ++j)
-              mma3<kExact>(part[j], ab, as, vr[8 * j], vr[LD + 8 * j]);
+              mma3(part[j], ab, as, vr[8 * j], vr[LD + 8 * j]);
           }
         }
 #pragma unroll
@@ -358,7 +335,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
   }
 
-  T* orow = o + qoff + static_cast<size_t>(r0 + g) * D + 2 * t;
+  float* orow = o + b * geo.o.b + h * geo.o.h + (q0 + r0 + g) * geo.o.s + 2 * t;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -366,7 +343,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const float inv = 1.0f / fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      store2(orow + 8 * r * D + 8 * j, acc[j][2 * r] * inv,
+      store2(orow + 8 * r * geo.o.s + 8 * j, acc[j][2 * r] * inv,
              acc[j][2 * r + 1] * inv);
   }
 }
@@ -376,96 +353,123 @@ size_t smem_bytes(int D, int block_q, int block_k) {
          (D + 4);
 }
 
-template <typename T, int D, int BK>
+template <int D, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int BH, int Sq, int Skv, int block_q, int causal,
-                   float scale, void* stream) {
-  const size_t smem = smem_bytes(D, block_q, BK);
+                   int batch, const Geometry& geo, void* stream) {
+  const size_t smem = smem_bytes(D, geo.block_q, BK);
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   static bool attr_set = false;         // once per instantiation
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D, BK>,
+        flash_fwd_kernel<D, BK>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const int n_qb = Sq / block_q;
-  const long long blocks = static_cast<long long>(BH) * n_qb;
+  const long long blocks =
+      static_cast<long long>(batch) * geo.heads * geo.n_qb;
   if (blocks == 0) return cudaSuccess;
-  flash_fwd_kernel<T, D, BK><<<static_cast<unsigned>(blocks),
-                               block_q / kRowsPerWarp * 32, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), n_qb, Sq, Skv, block_q,
-      causal, scale);
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  flash_fwd_kernel<D, BK><<<static_cast<unsigned>(blocks),
+                            geo.block_q / kRowsPerWarp * 32, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), geo);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_bk(const void* q, const void* k, const void* v, void* o,
-                      int BH, int Sq, int Skv, int block_q, int block_k,
-                      int causal, float scale, void* stream) {
+                      int batch, const Geometry& geo, int block_k,
+                      void* stream) {
   switch (block_k) {
     case 16:
-      return launch<T, D, 16>(q, k, v, o, BH, Sq, Skv, block_q, causal,
-                              scale, stream);
+      return launch<D, 16>(q, k, v, o, batch, geo, stream);
     case 32:
-      return launch<T, D, 32>(q, k, v, o, BH, Sq, Skv, block_q, causal,
-                              scale, stream);
+      return launch<D, 32>(q, k, v, o, batch, geo, stream);
     case 64:
-      return launch<T, D, 64>(q, k, v, o, BH, Sq, Skv, block_q, causal,
-                              scale, stream);
+      return launch<D, 64>(q, k, v, o, batch, geo, stream);
     case 128:
-      return launch<T, D, 128>(q, k, v, o, BH, Sq, Skv, block_q, causal,
-                               scale, stream);
+      return launch<D, 128>(q, k, v, o, batch, geo, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+// dims: B, Hq, Hkv, Sq, Skv, D, then the (b, s, h) element strides of
+// q, k, v and o.
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     int BH, int Sq, int Skv, int D, int block_q,
-                     int block_k, int causal, float scale, void* stream) {
+                     const long long* dims, int block_q, int block_k,
+                     int causal, float scale, void* stream) {
+  const long long B = dims[0], Hq = dims[1], Hkv = dims[2], Sq = dims[3],
+                  Skv = dims[4], D = dims[5];
   if (block_q < kRowsPerWarp || block_q % kRowsPerWarp != 0 ||
       block_q / kRowsPerWarp * 32 > kMaxThreads || Sq % block_q != 0 ||
-      block_k <= 0 || Skv % block_k != 0)
+      block_k <= 0 || Skv % block_k != 0 || B < 0 || Hq <= 0 ||
+      Hkv <= 0 || Hq % Hkv != 0 || Sq >= (1LL << 31) ||
+      Skv >= (1LL << 31) || Hq >= (1LL << 31))
     return cudaErrorInvalidValue;
+  for (int i = 0; i < 3; ++i)                // q, k, v rows inside a tile
+    if (dims[7 + 3 * i] < 0 || dims[7 + 3 * i] * kMaxThreads >= (1LL << 31))
+      return cudaErrorInvalidValue;
+  Geometry geo;
+  geo.heads = static_cast<int>(Hq);
+  geo.group = static_cast<int>(Hq / Hkv);
+  geo.n_qb = static_cast<int>(Sq / block_q);
+  geo.Sq = static_cast<int>(Sq);
+  geo.Skv = static_cast<int>(Skv);
+  geo.block_q = block_q;
+  geo.causal = causal;
+  geo.scale = scale;
+  Strides* st[4] = {&geo.q, &geo.k, &geo.v, &geo.o};
+  for (int i = 0; i < 4; ++i)
+    *st[i] = Strides{dims[6 + 3 * i], dims[7 + 3 * i], dims[8 + 3 * i]};
+  const int batch = static_cast<int>(B);
   switch (D) {
     case 64:
-      return launch_bk<T, 64>(q, k, v, o, BH, Sq, Skv, block_q, block_k,
-                              causal, scale, stream);
+      return launch_bk<64>(q, k, v, o, batch, geo, block_k, stream);
     case 128:
-      return launch_bk<T, 128>(q, k, v, o, BH, Sq, Skv, block_q, block_k,
-                               causal, scale, stream);
+      return launch_bk<128>(q, k, v, o, batch, geo, block_k, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The (BH, S, D) layout: B = BH, one head, rows D apart.
+void flat_dims(long long* dims, int BH, int Sq, int Skv, int D) {
+  const long long d[18] = {BH, 1, 1, Sq, Skv, D,
+                           1LL * Sq * D, D, 0, 1LL * Skv * D, D, 0,
+                           1LL * Skv * D, D, 0, 1LL * Sq * D, D, 0};
+  for (int i = 0; i < 18; ++i) dims[i] = d[i];
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (BH, Sq, D), k and v (BH, Skv, D), o (BH, Sq, D), 16-byte aligned;
-// D in {64, 128}; Sq a multiple of block_q (a multiple of 16, at most
-// 128), Skv of block_k (16, 32, 64 or 128). scale multiplies q . k.
+// q and o (B, Sq, Hq, D), k and v (B, Skv, Hkv, D) at the element
+// strides in dims (B, Hq, Hkv, Sq, Skv, D, then (b, s, h) of q, k, v,
+// o); D contiguous, rows 16-byte aligned; D in {64, 128}; Sq a multiple
+// of block_q (a multiple of 16, at most 128), Skv of block_k (16, 32, 64
+// or 128); Hq a multiple of Hkv, q head h reading kv head
+// h / (Hq / Hkv). scale multiplies q . k.
+int flash_attention_f32_bshd(const void* q, const void* k, const void* v,
+                             void* o, const long long* dims, int block_q,
+                             int block_k, int causal, float scale,
+                             void* stream) {
+  return static_cast<int>(
+      launch_d(q, k, v, o, dims, block_q, block_k, causal, scale, stream));
+}
+
+// q (BH, Sq, D), k and v (BH, Skv, D), o (BH, Sq, D), contiguous: the
+// case B = BH, one head, of flash_attention_f32_bshd.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* o, int BH, int Sq, int Skv, int D, int block_q,
                         int block_k, int causal, float scale, void* stream) {
-  return static_cast<int>(launch_d<float>(q, k, v, o, BH, Sq, Skv, D,
-                                          block_q, block_k, causal, scale,
-                                          stream));
-}
-
-int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* o, int BH, int Sq, int Skv, int D,
-                         int block_q, int block_k, int causal, float scale,
-                         void* stream) {
-  return static_cast<int>(launch_d<uint16_t>(q, k, v, o, BH, Sq, Skv, D,
-                                             block_q, block_k, causal, scale,
-                                             stream));
+  long long dims[18];
+  flat_dims(dims, BH, Sq, Skv, D);
+  return flash_attention_f32_bshd(q, k, v, o, dims, block_q, block_k, causal,
+                                  scale, stream);
 }
 
 }  // extern "C"

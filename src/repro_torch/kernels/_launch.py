@@ -11,14 +11,16 @@ FLOAT_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_SMEM_BYTES = 232448
 
 
-def check_cuda_args(what: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is contiguous and on one CUDA device."""
+def check_cuda_args(what: str, *tensors: torch.Tensor,
+                    contiguous: bool = True) -> None:
+    """Raise unless every tensor is on one CUDA device (and, unless
+    ``contiguous`` is False, contiguous)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{what}: every tensor must be on one CUDA "
                              f"device, got {[str(u.device) for u in tensors]}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
 
 

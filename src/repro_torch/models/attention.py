@@ -248,20 +248,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Causal self-attention at positions ``arange(S)`` through ``mha``.
 
-    q: (B, S, Hq, Dh); k, v: (B, S, K, Dh). The kernel scales q in
-    float32 by :func:`q_scale`. KV is widened to one head per q head (q
-    head h reads stored head h // g, the reference's (K, g) split) and
-    every operand goes to (B, H, S, Dh). On a CUDA tensor the kernel
-    launches or ``mha`` raises; nothing here falls back.
+    q: (B, S, Hq, Dh); k, v: (B, S, K, Dh); the scale is
+    :func:`q_scale`'s. The projections go to the kernel
+    as they lie: ``mha`` takes their (B, H, S, Dh) views, q head h reads
+    stored head h // g (the reference's (K, g) split) inside the kernel,
+    and its (B, S, Hq, Dh) output goes to ``out_proj`` as it is; nothing
+    is widened, transposed or padded where S is a multiple of the blocks
+    and Dh is the kernel's. On a CUDA tensor the kernel launches or
+    ``mha`` raises; nothing here falls back.
     """
-    g = q.shape[2] // k.shape[2]
-
-    def heads_first(x):
-        return x.transpose(1, 2).contiguous()
-
-    kw, vw = (x.repeat_interleave(g, dim=2) if g > 1 else x for x in (k, v))
-    o = mha(heads_first(q), heads_first(kw), heads_first(vw), causal=True,
-            scale=q_scale(q.shape[-1], q.dtype))
+    o = mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, scale=q_scale(q.shape[-1], q.dtype))
     return o.transpose(1, 2)
 
 

@@ -374,6 +374,81 @@ def test_flash_attention_kernel_matches_plain(dev, q_shape, kv_shape,
     assert float((out.cpu().double() - ref).abs().max()) <= tol
 
 
+# The bf16 route at every ATTN_CASES shape, and grouped-query cases (q
+# heads on H / g kv heads) in both dtypes: (q shape, kv shape, dtype,
+# causal), (B, H, S, D).
+ATTN_BF16_CASES = [((2, 3, 256, 64), (2, 3, 256, 64), torch.bfloat16, True),
+                   ((1, 2, 300, 64), (1, 2, 300, 64), torch.bfloat16, True),
+                   ((1, 2, 64, 48), (1, 2, 64, 48), torch.bfloat16, True),
+                   ((1, 2, 128, 64), (1, 2, 256, 64), torch.bfloat16,
+                    False),
+                   ((1, 1, 128, 64), (1, 1, 384, 64), torch.bfloat16, True)]
+ATTN_GQA_CASES = [((2, 10, 256, 128), (2, 2, 256, 128), torch.bfloat16,
+                   True),
+                  ((1, 4, 300, 64), (1, 2, 300, 64), torch.bfloat16, True),
+                  ((1, 10, 128, 64), (1, 2, 256, 64), torch.bfloat16, False),
+                  ((2, 10, 256, 128), (2, 2, 256, 128), torch.float32, True),
+                  ((1, 4, 128, 64), (1, 2, 384, 64), torch.float32, True)]
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,dtype,causal",
+                         ATTN_BF16_CASES + ATTN_GQA_CASES)
+def test_flash_attention_bf16_and_grouped_heads_match_float64(
+        dev, q_shape, kv_shape, dtype, causal):
+    """Through ``mha`` (one launch a call): bf16 at each ATTN_CASES
+    shape, and g q heads on each kv head (g = 5 and 2), against
+    chip_smoke.float64_attention on kv widened on the host (f32 2e-5,
+    bf16 3e-2, as test_flash_attention_kernel_matches_plain)."""
+    if REPO_ROOT not in sys.path:
+        sys.path.insert(0, REPO_ROOT)
+    from chip_smoke import float64_attention
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention.ops import mha
+    rng = np.random.default_rng(sum(q_shape) + sum(kv_shape))
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in (q_shape, kv_shape, kv_shape)]
+    before = fa_k.flash_attention.launches
+    out = mha(*(torch.from_numpy(a).to(dev, dtype) for a in arrays),
+              causal=causal)
+    torch.cuda.synchronize()
+    assert fa_k.flash_attention.launches == before + 1
+    assert out.shape == q_shape and out.dtype == dtype
+    ref = float64_attention(arrays, dtype, causal)
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    assert float((out.cpu().double() - ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hq,hkv", [(10, 2), (4, 2)])
+def test_flash_attention_reads_projection_outputs_where_they_lie(
+        dev, dtype, hq, hkv):
+    """q, k and v as slices of one projection's (B, S, Hq + 2 Hkv, D)
+    output (strided, none contiguous) straight into the kernel, its
+    output a (B, S, Hq, D) buffer: one launch, no copy of any operand
+    (each is read where it lies), and the plain version's values on the
+    same views within f32 2e-5 / bf16 3e-2 of float64."""
+    if REPO_ROOT not in sys.path:
+        sys.path.insert(0, REPO_ROOT)
+    from chip_smoke import float64_attention
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    b, s, d = 2, 256, 128
+    rng = np.random.default_rng(hq)
+    fused = torch.from_numpy(rng.standard_normal(
+        (b, s, hq + 2 * hkv, d)).astype(np.float32)).to(dev, dtype)
+    q, k, v = (fused[:, :, :hq], fused[:, :, hq:hq + hkv],
+               fused[:, :, hq + hkv:])
+    out = torch.empty(b, s, hq, d, device=dev, dtype=dtype)
+    before = fa_k.flash_attention.launches
+    fa_k.flash_attention(q, k, v, out, causal=True, block_q=128,
+                         block_k=128, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa_k.flash_attention.launches == before + 1
+    arrays = [x.transpose(1, 2).float().cpu().numpy() for x in (q, k, v)]
+    ref = float64_attention(arrays, dtype, True).transpose(1, 2)
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    assert float((out.cpu().double() - ref).abs().max()) <= tol
+
+
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_attention_every_grid_block_pair_launches(dev, d):
     """Every (block_q, block_k) of the autotune grid launches at both
