@@ -20,41 +20,44 @@
 // served shape (qwen2.5-32b, 4 x 1,024 tokens, 40 q heads on 8 kv heads,
 // D = 128) is 43.0 GFLOP of useful work against 100.7 MB of q, k, v and
 // o: 43.5 us at the dense bf16 rate of 989 TFLOP/s, 30 us of bytes at
-// 3.35 TB/s. The float32 route this replaces ran bf16 through 2xTF32
-// products on float32 tiles widened at load, with synchronous loads and
-// one CTA of 8 warps an SM (660 us, PR 25); and the model widened k and
-// v to 40 heads and copied all three to heads-first layout before it.
+// 3.35 TB/s. That rate is wgmma's alone. The float32 route this
+// replaces ran bf16 through 2xTF32 products on float32 tiles widened at
+// load, with synchronous loads (660 us, PR 25); and the model widened k
+// and v to 40 heads and copied all three to heads-first layout before
+// it.
 //
-// Design.
+// Design (FlashAttention-3's shape, without its ping-pong and
+// intra-warpgroup overlap):
 // - Operands stay bf16 all the way: Q, K and V tiles sit in shared
 //   memory as bf16, each tile as D/64 column blocks of rows x 128 bytes
-//   in TMA's 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)),
-//   so the 8 rows an ldmatrix phase reads hit 8 distinct bank groups.
+//   in the 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)),
+//   the layout wgmma reads.
 // - TMA copies them: one tensor map each for q, k and v over the (B, S,
 //   H, D) layout at the strides the caller has (encoded on the host
 //   with cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint:
-//   no link to libcuda), passed as __grid_constant__ parameters. A copy
-//   completes on an mbarrier; one thread issues them. K and V have a
-//   ring of two stages each, so tile t+1 is in flight while tile t is
-//   multiplied. GQA is the tensor map's head coordinate: q head h reads
-//   kv head h / g, and nothing is widened.
-// - Both products run on the tensor cores as mma.sync.m16n8k16 with
-//   bf16 operands and float32 accumulation, one warp per 16 query rows:
-//   Q's A fragments are loaded once with ldmatrix and kept in registers;
-//   K's B fragments come by ldmatrix (keys are K's rows, so K is already
-//   the column-major B), V's by ldmatrix.trans. The score accumulator of
-//   two 8-key groups is the A fragment of a 16-key step of P.V, so P
-//   goes from registers to the tensor cores as packed bf16 pairs, with
-//   no shuffle and no shared memory.
+//   no link to libcuda), passed as __grid_constant__ parameters. GQA is
+//   the tensor map's head coordinate: q head h reads kv head h / g, and
+//   nothing is widened. One producer warp keeps a ring of two K and V
+//   stages full: a copy completes on the stage's full mbarrier, and the
+//   producer refills a stage once every consumer warp has arrived on its
+//   empty mbarrier.
+// - Consumer warpgroups of 64 query rows (block_q / 64 of them) run both
+//   products as wgmma.mma_async with float32 accumulators: S = Q K^T as
+//   m64n{block_k}k16 with Q and K from shared memory (both K-major),
+//   then O += P V as m64n{D}k16 with P from registers and V from shared
+//   memory, transposed by the instruction (V's rows are keys, its
+//   columns the product's N). The score accumulator of two 8-key groups
+//   is the register A fragment of a 16-key step of P.V, so P goes to the
+//   tensor cores as packed bf16 pairs, with no shuffle and no shared
+//   memory.
 // - The causal mask is applied only where a tile crosses the diagonal;
-//   tiles wholly above it are never loaded, and a warp skips the
+//   tiles wholly above it are never loaded, and a warpgroup skips the
 //   products of a tile none of its rows sees. The grid walks query
 //   blocks heaviest first across all heads (the slow grid index is the
 //   query block, from the last), so the longest CTAs start first.
-// - This is the mma.sync kernel. The card's full bf16 rate needs wgmma
-//   (warpgroup products from shared memory) with a producer warp
-//   keeping the TMA ring full; the tiles' layout here is the one wgmma
-//   reads (K-major, 128-byte swizzle).
+// - A warpgroup waits for its S before its softmax and for its P.V
+//   before the next S: the overlap of one with the other comes from the
+//   other warpgroups on the SM, not from inside a warpgroup.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,12 +69,12 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kRowsPerWarp = 16;
-constexpr int kMaxThreads = 256;        // block_q <= 128
+constexpr int kMaxThreads = 288;        // 2 consumer warpgroups + 1 warp
 constexpr int kMaxSmem = 232448;        // 227 KB, the opt-in limit
 constexpr int kStages = 2;              // the K and V rings
 constexpr int kAtomCols = 64;           // bf16 columns of a 128-byte row
 constexpr int kAlign = 1024;            // the 128-byte swizzle's period
-constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+constexpr int kBarBytes = 8 * (1 + 3 * kStages);
 // A tile that has not arrived after this many polls of its barrier
 // (seconds) traps instead of hanging the card.
 constexpr uint32_t kMaxPolls = 1u << 26;
@@ -90,18 +93,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Shared address of element (r, c) of a tile of `rows` rows: column
-// block c / 64, 16-byte chunk (c % 64) / 8 swizzled by r % 8. c is a
-// multiple of 8 here.
-__device__ __forceinline__ uint32_t tile_at(uint32_t base, int rows, int r,
-                                            int c) {
-  const int chunk = (c % kAtomCols) >> 3;
-  return base + (c / kAtomCols) * rows * 128 + r * 128 +
-         ((chunk ^ (r & 7)) << 4);
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void bar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
                : "memory");
 }
 
@@ -143,30 +142,179 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
         : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+// A shared-memory matrix descriptor of a tile in the 128-byte swizzle:
+// start address, leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
 
-// d += a b for a 16x16 bf16 A, a 16x8 bf16 B and a 16x8 float32 D.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Registers an asynchronous product reads or writes stay where they are
+// until this point (no instruction of the compiler's moves across it).
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (+)= A B for a 64 x 16 A and a 16 x 64 B, both K-major in shared
+// memory (descriptors da, db); d is the 64 x 64 float32 accumulator,
+// overwritten unless accumulate.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A B for a 64 x 16 A and a 16 x 128 B, both K-major in shared
+// memory (descriptors da, db); d is the 64 x 128 float32 accumulator,
+// overwritten unless accumulate.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B for a 64 x 16 A in registers (each warp's m16n8k16 A
+// fragment of its 16 rows) and a 16 x 64 B in shared memory stored
+// N-major (descriptor db; the instruction transposes it).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B for a 64 x 16 A in registers (each warp's m16n8k16 A
+// fragment of its 16 rows) and a 16 x 128 B in shared memory stored
+// N-major (descriptor db; the instruction transposes it).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 64)
+    wgmma_ss_n64(d, da, db, accumulate);
+  else
+    wgmma_ss_n128(d, da, db, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n128(d, a, db);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -188,8 +336,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           uint16_t* __restrict__ o, const Geometry geo) {
-  constexpr int NKG = BK / 8;           // 8-key groups of a tile
-  constexpr int NDG = D / 8;            // 8-dim groups of a row
+  constexpr int NS = BK / 2;            // score registers of a thread
+  constexpr int NO = D / 2;             // output registers of a thread
   constexpr int KQ = D / 16;            // 16-deep steps of Q K^T
   constexpr int KP = BK / 16;           // 16-key steps of P V
   constexpr int TILE = BK * D * 2;      // bytes of a K or V tile
@@ -198,6 +346,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int block_q = geo.block_q, causal = geo.causal;
+  const int n_cw = block_q / kRowsPerWarp;  // consumer warps
   // Heavy (late, causal) query blocks first over every head.
   const int qb = geo.n_qb - 1 - static_cast<int>(blockIdx.x) / geo.n_bh;
   const int bh = static_cast<int>(blockIdx.x) % geo.n_bh;
@@ -215,94 +364,98 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       (smem_u32(smem_raw) + (kAlign - 1)) & ~static_cast<uint32_t>(kAlign - 1);
   const uint32_t sK = sQ + block_q * D * 2;
   const uint32_t sV = sK + kStages * TILE;
+  // Barriers: Q; then per stage, K full, V full, and empty (every
+  // consumer warp is done with the stage).
   const uint32_t bar_q = sV + kStages * TILE;
-  // bar_k(s) = bar_q + 8 (1 + s), bar_v(s) = bar_q + 8 (1 + kStages + s)
+  const uint32_t full_k = bar_q + 8, full_v = full_k + 8 * kStages,
+                 empty = full_v + 8 * kStages;
 
   if (tid == 0) {
-    for (int i = 0; i < 1 + 2 * kStages; ++i) bar_init(bar_q + 8 * i);
+    bar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full_k + 8 * s, 1);
+      bar_init(full_v + 8 * s, 1);
+      bar_init(empty + 8 * s, n_cw);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0) {
-    bar_expect(bar_q, block_q * D * 2);
-    tma_tile<D>(sQ, &tm_q, bar_q, block_q, q0, h, b);
-    for (int s = 0; s < kStages && s < n_tiles; ++s) {
-      bar_expect(bar_q + 8 * (1 + s), TILE);
-      tma_tile<D>(sK + s * TILE, &tm_k, bar_q + 8 * (1 + s), BK, s * BK,
-                  hk, b);
-      bar_expect(bar_q + 8 * (1 + kStages + s), TILE);
-      tma_tile<D>(sV + s * TILE, &tm_v, bar_q + 8 * (1 + kStages + s), BK,
-                  s * BK, hk, b);
+
+  if (warp == n_cw) {
+    // The producer: one lane keeps the ring full.
+    if (lane == 0) {
+      bar_expect(bar_q, block_q * D * 2);
+      tma_tile<D>(sQ, &tm_q, bar_q, block_q, q0, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) bar_wait(empty + 8 * st, (it / kStages + 1) & 1);
+        bar_expect(full_k + 8 * st, TILE);
+        tma_tile<D>(sK + st * TILE, &tm_k, full_k + 8 * st, BK, it * BK,
+                    hk, b);
+        bar_expect(full_v + 8 * st, TILE);
+        tma_tile<D>(sV + st * TILE, &tm_v, full_v + 8 * st, BK, it * BK,
+                    hk, b);
+      }
     }
+    return;
   }
 
-  const int r0 = warp * kRowsPerWarp;   // the warp's first row in the tile
+  // Consumers: warpgroup wg owns query rows 64 wg .. 64 wg + 63 of the
+  // block, its warp w rows 16 w .. 16 w + 15 of those.
+  const int wg = warp >> 2;
+  const int r0 = 64 * wg + kRowsPerWarp * (warp & 3);
   const int qpos = q0 + r0 + g + q_offset;  // position of row g (g+8: +8)
-  const int qlast = q0 + r0 + kRowsPerWarp - 1 + q_offset;
-  float acc[NDG][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  const int wg_last = q0 + 64 * wg + 63 + q_offset;
+  const uint32_t q_rows = sQ + 64 * wg * 128;
+  float acc[NO], m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int j = 0; j < NDG; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-
-  // Q's A fragments, 16 deep each: rows r0 + (lane % 8) (+8 for lanes
-  // 8-15 and 24-31), columns +8 for lanes 16-31.
-  uint32_t qf[KQ][4];
+  for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
   bar_wait(bar_q, 0);
-#pragma unroll
-  for (int kk = 0; kk < KQ; ++kk)
-    ldmatrix_x4(qf[kk], tile_at(sQ, block_q,
-                                r0 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                16 * kk + (lane >> 4) * 8));
 
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it % kStages;
     const uint32_t parity = (it / kStages) & 1;
     const int k0 = it * BK;
     const uint32_t kt = sK + st * TILE, vt = sV + st * TILE;
-    // Keys of this tile that the warp's last row sees (all if not causal).
-    const int live = causal ? min(BK, qlast - k0 + 1) : BK;
-    bar_wait(bar_q + 8 * (1 + st), parity);
-    float s[NKG][4];
+    // Keys of this tile the warpgroup's last row sees (all if not
+    // causal): the same in every thread of the warpgroup.
+    const int live = causal ? min(BK, wg_last - k0 + 1) : BK;
+    bar_wait(full_k + 8 * st, parity);
+    // s[4j + e]: row g (e < 2) or g + 8, key 8j + 2t + (e & 1).
+    float s[NS];
+    uint32_t pa[KP][4];
     if (live > 0) {
-      // S = Q K^T: s[j] holds rows g, g+8 x keys 8j + 2t, 8j + 2t + 1.
-#pragma unroll
-      for (int j = 0; j < NKG; ++j)
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      // S = Q K^T, 16 deep a step: Q's and K's rows are 128-byte lines,
+      // 64 columns a block; a step moves 32 bytes along them.
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KQ; ++kk) {
-#pragma unroll
-        for (int jj = 0; jj < NKG / 2; ++jj) {
-          // Keys 16 jj + (lane % 8) (+8 for lanes 16-31), dims 16 kk
-          // (+8 for lanes 8-15 and 24-31): B of key groups 2jj, 2jj+1.
-          uint32_t kb[4];
-          ldmatrix_x4(kb, tile_at(kt, BK, 16 * jj + (lane & 7) +
-                                              ((lane >> 4) << 3),
-                                  16 * kk + ((lane >> 3) & 1) * 8));
-          mma(s[2 * jj], qf[kk], kb[0], kb[1]);
-          mma(s[2 * jj + 1], qf[kk], kb[2], kb[3]);
-        }
+        const uint32_t step = (kk % 4) * 32;
+        wgmma_ss<BK>(
+            s, smem_desc(q_rows + (kk / 4) * block_q * 128 + step, 16, 1024),
+            smem_desc(kt + (kk / 4) * BK * 128 + step, 16, 1024), kk > 0);
       }
+      wgmma_commit_and_wait();
+      pin(s);
 #pragma unroll
-      for (int j = 0; j < NKG; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= geo.scale_log2;
+      for (int i = 0; i < NS; ++i) s[i] *= geo.scale_log2;
       // The causal mask, only where the tile crosses the diagonal.
       if (causal && k0 + BK - 1 > qpos - g) {
 #pragma unroll
-        for (int j = 0; j < NKG; ++j)
+        for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             if (k0 + 8 * j + 2 * t + (e & 1) > qpos + 8 * (e >> 1))
-              s[j][e] = -CUDART_INF_F;
+              s[4 * j + e] = -CUDART_INF_F;
       }
       // Online softmax: row max over the quad, exp2, partial row sums
       // (each lane sums its own columns; the quad adds them at the end).
       float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int j = 0; j < NKG; ++j) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+      for (int j = 0; j < NS / 4; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -312,58 +465,44 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         m[r] = mx[r];
         l[r] *= corr;
 #pragma unroll
-        for (int j = 0; j < NDG; ++j) {
-          acc[j][2 * r] *= corr;
-          acc[j][2 * r + 1] *= corr;
+        for (int j = 0; j < NO / 4; ++j) {
+          acc[4 * j + 2 * r] *= corr;
+          acc[4 * j + 2 * r + 1] *= corr;
         }
       }
 #pragma unroll
-      for (int j = 0; j < NKG; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = fast_exp2(s[j][e] - m[e >> 1]);
-          l[e >> 1] += s[j][e];
-        }
-    }
-
-    bar_wait(bar_q + 8 * (1 + kStages + st), parity);
-    if (live > 0) {
-      // O += P V, 16 keys a step: key groups 2kk and 2kk+1 of the scores
-      // are that step's A fragment.
+      for (int i = 0; i < NS; ++i) {
+        s[i] = fast_exp2(s[i] - m[(i >> 1) & 1]);
+        l[(i >> 1) & 1] += s[i];
+      }
+      // P as the A fragments of P V: key groups 2kk and 2kk + 1 of the
+      // scores are the 16-key step kk.
 #pragma unroll
       for (int kk = 0; kk < KP; ++kk) {
-        if (16 * kk < live) {
-          const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                  pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                  pack_bf16(s[2 * kk + 1][0],
-                                            s[2 * kk + 1][1]),
-                                  pack_bf16(s[2 * kk + 1][2],
-                                            s[2 * kk + 1][3])};
-#pragma unroll
-          for (int jj = 0; jj < NDG / 2; ++jj) {
-            // Keys 16 kk + (lane % 8) (+8 for lanes 8-15 and 24-31),
-            // dims 16 jj (+8 for lanes 16-31), transposed: B of dim
-            // groups 2jj, 2jj+1.
-            uint32_t vb[4];
-            ldmatrix_x4_trans(vb, tile_at(vt, BK,
-                                          16 * kk + (lane & 7) +
-                                              ((lane >> 3) & 1) * 8,
-                                          16 * jj + (lane >> 4) * 8));
-            mma(acc[2 * jj], pa, vb[0], vb[1]);
-            mma(acc[2 * jj + 1], pa, vb[2], vb[3]);
-          }
-        }
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
       }
     }
-    __syncthreads();                    // every warp is done with stage st
-    if (tid == 0 && it + kStages < n_tiles) {
-      const int kn = (it + kStages) * BK;
-      bar_expect(bar_q + 8 * (1 + st), TILE);
-      tma_tile<D>(kt, &tm_k, bar_q + 8 * (1 + st), BK, kn, hk, b);
-      bar_expect(bar_q + 8 * (1 + kStages + st), TILE);
-      tma_tile<D>(vt, &tm_v, bar_q + 8 * (1 + kStages + st), BK, kn, hk,
-                  b);
+
+    bar_wait(full_v + 8 * st, parity);
+    if (live > 0) {
+      // O += P V, 16 keys a step: V's rows are keys, its columns (the
+      // product's N) contiguous, so the instruction transposes it; 8-key
+      // row groups 1,024 bytes apart, 64-column blocks a tile apart.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk)
+        if (16 * kk < live)
+          wgmma_rs<D>(acc, pa[kk],
+                      smem_desc(vt + kk * 16 * 128, BK * 128, 1024));
+      wgmma_commit_and_wait();
+      pin(acc);
+      pin(pa);
     }
+    __syncwarp();
+    if (lane == 0) bar_arrive(empty + 8 * st);
   }
 
   uint16_t* orow = o + b * geo.o.b + h * geo.o.h +
@@ -374,9 +513,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const float inv = 1.0f / fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < NDG; ++j)
+    for (int j = 0; j < NO / 4; ++j)
       *reinterpret_cast<uint32_t*>(orow + 8 * r * geo.o.s + 8 * j) =
-          pack_bf16(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+          pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
   }
 }
 
@@ -472,7 +611,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   geo.scale_log2 = scale * kLog2e;
   geo.o = Strides{dims[15], dims[16], dims[17]};
   flash_fwd_bf16_kernel<D, BK><<<static_cast<unsigned>(blocks),
-                                 block_q / kRowsPerWarp * 32, smem,
+                                 block_q / kRowsPerWarp * 32 + 32, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
       mq, mk, mv, static_cast<uint16_t*>(o), geo);
   return cudaGetLastError();

@@ -1,7 +1,7 @@
 """Launch wrapper of the hand-written flash-attention kernels:
 csrc/flash_attention.cu (float32: 3xTF32 products on float32 tiles) and
-csrc/flash_attention_bf16.cu (bfloat16: bf16 tensor-core products on
-bf16 tiles that TMA fills).
+csrc/flash_attention_bf16.cu (bfloat16: wgmma products on bf16 tiles
+that TMA fills).
 
 Together they replace the TPU kernel
 ``repro/kernels/flash_attention/kernel.py:flash_attention``.
@@ -20,8 +20,9 @@ HEAD_DIMS = (64, 128)      # the kernel's templates; ops.py pads D to one
 BLOCK_K_VALUES = (16, 32, 64, 128)   # templates too: S lives in registers
 ROWS_PER_WARP = 16         # one m16n8k8 row block per warp
 MAX_BLOCK_Q = 128          # 256 threads per CTA
-# The bf16 kernel's (block_q, block_k): 4 or 8 warps, tiles of 64 or 128
-# keys in a two-stage ring.
+# The bf16 kernel's (block_q, block_k): one or two consumer warpgroups of
+# 64 query rows (and a producer warp), tiles of 64 or 128 keys in a
+# two-stage ring.
 BF16_BLOCKS = ((64, 64), (64, 128), (128, 64), (128, 128))
 # dtype -> (source, exported function)
 ENTRY = {torch.float32: ("flash_attention", "flash_attention_f32_bshd"),
@@ -40,9 +41,9 @@ def smem_bytes(d: int, block_q: int, block_k: int) -> int:
 
 def bf16_smem_bytes(d: int, block_q: int, block_k: int) -> int:
     """Dynamic shared memory of one CTA of the bf16 kernel: the Q tile
-    and two stages of K and V tiles, bf16, its five mbarriers and the
+    and two stages of K and V tiles, bf16, its seven mbarriers and the
     slack to align the tiles to the swizzle's 1,024 bytes."""
-    return 2 * (block_q + 4 * block_k) * d + 40 + 1024
+    return 2 * (block_q + 4 * block_k) * d + 56 + 1024
 
 
 def check_blocks(d: int, block_q: int, block_k: int,
