@@ -203,7 +203,7 @@ def test_decode_attention(window, softcap):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_route_equals_streaming_route(dtype):
     """The kernel's route (here its plain version behind ``mha``'s
-    padding, with kv widened to one head per q head) computes what the
+    padding, q head h reading kv head h // g) computes what the
     streaming softmax does, and launches nothing on the CPU."""
     cfg = get_reduced("qwen2.5-32b")                  # 5 q heads, 1 kv
     q, k, v = arrays(7, (2, 12, 5, 16), (2, 12, 1, 16), (2, 12, 1, 16))
