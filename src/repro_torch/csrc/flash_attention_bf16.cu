@@ -22,9 +22,9 @@
 // o: 43.5 us at the dense bf16 rate of 989 TFLOP/s, 30 us of bytes at
 // 3.35 TB/s. That rate is wgmma's alone. The float32 route this
 // replaces ran bf16 through 2xTF32 products on float32 tiles widened at
-// load, with synchronous loads (660 us, PR 25); and the model widened k
-// and v to 40 heads and copied all three to heads-first layout before
-// it.
+// load, with synchronous loads (660 us at that prefill); and the model
+// widened k and v to 40 heads and copied all three to heads-first
+// layout before it.
 //
 // Design (FlashAttention-3's shape, without its ping-pong and
 // intra-warpgroup overlap):
@@ -532,7 +532,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapFloatOOBfill);
 
 // The driver's cuTensorMapEncodeTiled, through the runtime (no link to
-// libcuda); null if the driver has none.
+// libcuda); null if the CUDA driver has none.
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
