@@ -1922,33 +1922,55 @@ def moe_drops(model, run) -> dict:
             "share_by_layer": [float(d) / n for d, n in seen]}
 
 
-def moe_combine_runs(model, batch, chunk) -> dict:
-    """How often the routed experts' combine product, (B, S, E*C) x
-    (B, E*C, d), runs in one plain-route loss and in its backward: a
-    dispatch mode counts the batched products of that signature. Each
-    MoE layer runs it once in the forward; its layer checkpoint's
-    recomputation (non-reentrant, stopping once the tensors the backward
-    saved are rebuilt) should not run it again (ROADMAP Queue 3 item
-    11)."""
+def moe_product_runs(model, batch, chunk) -> dict:
+    """How often each MoE layer's two final products run in one
+    plain-route loss and in its backward: the routed experts' combine
+    (the einsum dispatch's (B, S, E*C) x (B, E*C, d) product, the gather
+    dispatch's scatter-add of the weighted slots to their tokens) and
+    the shared experts' output projection, (B*S, d_shared) x (d_shared,
+    d); and, to show that the count sees the layer checkpoint's
+    recomputation, the routed experts' input products (wi and wg, (E,
+    B*C, d) x (E, d, d_expert)). A dispatch mode counts each when it
+    runs with grad enabled: a forward op or one the recomputation runs
+    again (a gradient's own products run without; the dispatch's input
+    gradient has the combine's signature, the shared experts' input
+    gradient the projection's). Each runs once per MoE layer in the
+    forward; the recomputation (non-reentrant, it stops once the tensors
+    the backward saved are rebuilt) runs the experts' input products
+    again and neither final product (the combine is the last op that
+    saves a tensor, and the shared projection's output is kept,
+    ``layers.kept``). On the CPU too (``tests/test_torch_moe_remat.py``)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch.models.moe import _capacity
 
     cfg = model.cfg
-    ec = cfg.moe.n_experts * _capacity(batch["tokens"].shape[1], cfg.moe)
-    seen = {"forward": 0, "backward": 0}
+    mc = cfg.moe
+    ec = mc.n_experts * _capacity(batch["tokens"].shape[1], mc)
+    shared = (mc.d_expert * mc.n_shared, cfg.d_model)
+    seen = {what: {"forward": 0, "backward": 0}
+            for what in ("combine", "shared_out", "experts_in")}
     where = ["forward"]
 
+    def what(packet, args):
+        if packet in (torch.ops.aten.scatter_add,
+                      torch.ops.aten.scatter_add_):
+            return "combine"
+        if packet is torch.ops.aten.mm and tuple(args[1].shape) == shared:
+            return "shared_out"
+        if packet is torch.ops.aten.bmm:
+            if args[0].shape[-1] == ec and \
+                    tuple(args[1].shape[-2:]) == (ec, cfg.d_model):
+                return "combine"
+            if tuple(args[1].shape[-2:]) == (cfg.d_model, mc.d_expert):
+                return "experts_in"
+        return None
+
     class Count(TorchDispatchMode):
-        # In the backward a recomputed forward op runs with grad enabled,
-        # a gradient's own product without (the dispatch's input
-        # gradient has the combine's signature too).
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func._overloadpacket is torch.ops.aten.bmm and \
-                    args[0].shape[-1] == ec and \
-                    tuple(args[1].shape[-2:]) == (ec, cfg.d_model) and \
-                    torch.is_grad_enabled():
-                seen[where[0]] += 1
+            kind = what(func._overloadpacket, args)
+            if kind is not None and torch.is_grad_enabled():
+                seen[kind][where[0]] += 1
             return func(*args, **(kwargs or {}))
 
     with Count():
@@ -1956,8 +1978,24 @@ def moe_combine_runs(model, batch, chunk) -> dict:
         where[0] = "backward"
         grads = torch.autograd.grad(loss, list(model.parameters()))
     del grads
-    torch.cuda.synchronize()
-    return dict(seen, moe_layers=sum(d.moe for d in model.descs))
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(seen, moe_layers=sum(d.moe for d in model.descs),
+                shared_experts=mc.n_shared)
+
+
+def moe_product_faults(runs: dict) -> list[str]:
+    """What ``moe_product_runs`` saw that it should not have: each
+    final product other than once per MoE layer in the forward or at all
+    in the backward (the shared projection only where there are shared
+    experts), the experts' input products not recomputed."""
+    n = runs["moe_layers"]
+    want = {"combine": {"forward": n, "backward": 0},
+            "shared_out": {"forward": n if runs["shared_experts"] else 0,
+                           "backward": 0},
+            "experts_in": {"forward": 2 * n, "backward": 2 * n}}
+    return [f"{k} ran {runs[k]}, not {v}" for k, v in want.items()
+            if runs[k] != v]
 
 
 def train_family_run(arch: str, dev) -> dict:
@@ -2049,12 +2087,12 @@ def train_family_run(arch: str, dev) -> dict:
     del ostate, params
     torch.cuda.empty_cache()
     drops = div = None
-    combine = None
+    products = None
     if cfg.moe is not None:
         with torch.no_grad():
             drops = moe_drops(model, lambda: model.loss(eval_batch))
         if cfg.remat:
-            combine = moe_combine_runs(model, eval_batch, chunk)
+            products = moe_product_runs(model, eval_batch, chunk)
     if run.get("profile"):
         div = route_divergence(model, eval_batch["tokens"].to(dev),
                                cfg.dtype)
@@ -2081,7 +2119,7 @@ def train_family_run(arch: str, dev) -> dict:
         "eval_plain_ms": ev[1].elapsed_time(ev[2]),
         "launches": launches, "causal_attention_layers": want_flash,
         "route_divergence": div, "attn_tol": SERVE_ATTN_TOL["bfloat16"],
-        "moe_combine_runs": combine}
+        "moe_product_runs": products}
     if s == SHAPES["train_4k"].seq_len:
         # 6 N D on the active parameters (the routed top-k of each MoE
         # layer) plus the causal attention term, for this step's tokens.
@@ -2106,11 +2144,10 @@ def train_family_run(arch: str, dev) -> dict:
             SERVE_ATTN_TOL["bfloat16"]:
         raise AssertionError(f"train_families {arch}: flash attention vs "
                              f"plain: {div['attn_rel_max']} of max |o|")
-    if combine is not None and (combine["backward"] or combine["forward"]
-                                != combine["moe_layers"]):
-        raise AssertionError(f"train_families {arch}: the MoE combine ran "
-                             f"{combine} times (once a MoE layer in the "
-                             "forward, never in the backward)")
+    faults = moe_product_faults(products) if products else []
+    if faults:
+        raise AssertionError(f"train_families {arch}: the MoE layers' "
+                             f"products: {'; '.join(faults)}")
     return res
 
 

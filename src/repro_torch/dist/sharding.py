@@ -389,6 +389,19 @@ def run_local(fn, dts: Sequence, rest: Sequence, out_like):
                             out_like.stride())
 
 
+def run_local_sum(fn, dts: Sequence, shape: Sequence[int], placements):
+    """``fn(*locals)`` on the local shards of the DTensors ``dts``, its
+    output a DTensor of global ``shape`` and ``placements``, where a
+    ``Partial()`` says that each device holds its part of a sum (its
+    slots' contributions), left for a later :func:`constrain` to reduce.
+    Such an output's gradient reaches every device whole."""
+    locals_ = [_ToLocal.apply(x) for x in dts]
+    shape = torch.Size(shape)
+    return _FromLocal.apply(fn(*locals_), dts[0].device_mesh,
+                            tuple(placements), shape,
+                            torch.empty(shape, device="meta").stride())
+
+
 def _plain(g, mesh, placements):
     """A gradient as the local shard of ``placements``."""
     while isinstance(g, DTensor):
@@ -421,7 +434,10 @@ class _FromLocal(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _plain(g, ctx.mesh, ctx.placements), None, None, None, None
+        # The gradient of a sum's part is the sum's gradient.
+        placements = tuple(Replicate() if p.is_partial() else p
+                           for p in ctx.placements)
+        return _plain(g, ctx.mesh, placements), None, None, None, None
 
 
 def unshard_grad(x, dim: int):

@@ -8,8 +8,11 @@ return their input unchanged outside one.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.dist.sharding import constrain
 from repro_torch.models.config import ModelConfig
@@ -63,12 +66,14 @@ def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     }
 
 
-def mlp(p, x: torch.Tensor, kind: str,
-        lead: tuple = ("batch", "seq")) -> torch.Tensor:
+def mlp(p, x: torch.Tensor, kind: str, lead: tuple = ("batch", "seq"),
+        keep_out: bool = False) -> torch.Tensor:
     """The reference casts each weight to x's dtype at every call.
     ``lead`` names x's leading dims for the constraints (the MoE experts'
-    batched call passes ("experts", None): the reference vmaps this
-    function over the experts)."""
+    batched call passes ("experts", "batch"): the reference vmaps this
+    function over the experts, so each expert's tokens keep the batch's
+    placement). ``keep_out`` runs the output projection, with its
+    constraint, through :func:`kept`."""
     h = x @ p["wi"].to(x.dtype)
     h = constrain(h, (*lead, "d_ff"))
     if kind == "swiglu":
@@ -81,7 +86,81 @@ def mlp(p, x: torch.Tensor, kind: str,
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
     else:
         raise ValueError(f"unknown mlp kind {kind!r}")
-    return constrain(h @ p["wo"].to(x.dtype), (*lead, "d_model"))
+    wo = p["wo"].to(x.dtype)
+
+    def out(h):
+        return constrain(h @ wo, (*lead, "d_model"))
+
+    return kept(out, h) if keep_out else out(h)
+
+
+# -- kept products ------------------------------------------------------------
+
+_keeping = threading.local()
+
+
+class _Keep:
+    """One side of :func:`keep_context`: the forward's (it records what
+    :func:`kept` returns) or the recomputation's (it replays that)."""
+
+    def __init__(self, outputs: list, replay: bool):
+        self.outputs, self.replay, self.index = outputs, replay, 0
+
+    def __enter__(self):
+        self.before = getattr(_keeping, "state", None)
+        self.index = 0
+        _keeping.state = self
+        return self
+
+    def __exit__(self, *exc):
+        _keeping.state = self.before
+
+
+def keep_context():
+    """``context_fn`` for ``torch.utils.checkpoint.checkpoint``: the
+    checkpointed function's forward keeps the output of each
+    :func:`kept` call, and its recomputation gets it back without
+    computing; every other op is recomputed, as without a context."""
+    outputs: list = []
+    return _Keep(outputs, replay=False), _Keep(outputs, replay=True)
+
+
+class _Answer(TorchDispatchMode):
+    """Answers the one matrix product it sees with ``out`` (reshaped to
+    the product's shape) instead of computing it."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+            if self.out is None:
+                raise RuntimeError("kept: a second product")
+            out, self.out = self.out, None
+            return out.reshape(*args[0].shape[:-1], args[1].shape[-1])
+        return func(*args, **(kwargs or {}))
+
+
+def kept(product, *args):
+    """``product(*args)``, one matrix product and what follows it (views,
+    constraints). Inside a checkpoint whose ``context_fn`` is
+    :func:`keep_context`, the forward keeps its output (one activation)
+    and the recomputation returns it: the product is still dispatched,
+    so autograd saves its inputs as in the forward, and answered with
+    the kept output, which already has its final placement (no
+    collective either). Elsewhere it is ``product(*args)``."""
+    state = getattr(_keeping, "state", None)
+    if state is None:
+        return product(*args)
+    if not state.replay:
+        out = product(*args)
+        state.outputs.append(out.detach())
+        return out
+    out = state.outputs[state.index]
+    state.index += 1
+    with _Answer(out):
+        return product(*args)
 
 
 # -- embeddings ----------------------------------------------------------------

@@ -27,7 +27,7 @@ import math
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding as shd
@@ -37,7 +37,8 @@ from repro_torch.models.blocks import (LayerDesc, block_decode,
                                        block_specs, init_cache)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed_specs, embed_tokens,
-                                       logits_out, norm_spec, rmsnorm)
+                                       keep_context, logits_out, norm_spec,
+                                       rmsnorm)
 from repro_torch.models.params import stack_specs
 
 VOCAB_PAD = 2048
@@ -241,7 +242,9 @@ class LM(nn.Module):
                    attention: str = "flash"):
         """Returns (x, the layers' summed MoE aux). With grad enabled and
         ``cfg.remat``, each layer is checkpointed, as the reference
-        checkpoints each period (``repro/models/model.py:128-129``)."""
+        checkpoints each period (``repro/models/model.py:128-129``); a
+        MoE layer with shared experts keeps their output projection's
+        output for its recomputation (``layers.keep_context``)."""
         cfg = self.cfg
         remat = cfg.remat and torch.is_grad_enabled()
         aux = 0.0
@@ -249,8 +252,11 @@ class LM(nn.Module):
             kw = dict(memory=memory, rwkv_chunk=rwkv_chunk,
                       attention=attention)
             if remat:
-                x, a = checkpoint(self._block, p, x, desc,
-                                  use_reentrant=False, **kw)
+                keep = desc.moe and cfg.moe.n_shared
+                x, a = checkpoint(
+                    self._block, p, x, desc, use_reentrant=False,
+                    context_fn=keep_context if keep else noop_context_fn,
+                    **kw)
             else:
                 x, a = self._block(p, x, desc, **kw)
             aux = aux + a

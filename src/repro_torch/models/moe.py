@@ -18,16 +18,19 @@ weights, and the Switch load-balancing loss. Among equal probabilities
 the lower expert comes first, as ``jax.lax.top_k`` orders them: a
 stable descending sort, since ``torch.topk`` promises no order among
 ties. The reference's ``constrain`` calls stand where it puts them
-(no-ops off a mesh), and two more place what XLA's propagation places
-unasked: the expert one-hots on the experts axis and the combine's
-output in the residual's placement.
+(no-ops off a mesh), and three more place what XLA's propagation places
+unasked: the router's logits and the expert one-hots on the experts
+axis (so the router's weight gradient is each model shard's experts'
+alone) and the combine's output in the residual's placement.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Shard
 
-from repro_torch.dist.sharding import constrain, contiguous_grad
+from repro_torch.dist.sharding import (constrain, contiguous_grad, current,
+                                      run_local_sum, spec_entries, zeros)
 from repro_torch.models.config import ModelConfig, MoeConfig
 from repro_torch.models.layers import mlp, mlp_specs
 from repro_torch.models.params import Spec, stack_specs
@@ -98,7 +101,13 @@ def _moe_experts(p, xe: torch.Tensor, kind: str) -> torch.Tensor:
     batched product per stacked matrix, experts leading."""
     b, e, c, d = xe.shape
     xe_t = xe.transpose(0, 1).reshape(e, b * c, d)          # (E,B*C,d)
-    ye = mlp(p["experts"], xe_t, kind, lead=("experts", None))
+    # Each data shard's experts compute on its own tokens, as under the
+    # reference's vmap: the merged (B*C) dim is named "batch" when B is
+    # sharded (Shard(B*C) is then Shard(B)); else it stays whole, as B.
+    bound = current()
+    tokens = "batch" if bound is not None and \
+        spec_entries((b,), ("batch",), *bound) else None
+    ye = mlp(p["experts"], xe_t, kind, lead=("experts", tokens))
     # On a mesh the transpose's gradient reaches the reshape's backward
     # (a view) with a transposed local shard (contiguous_grad says why).
     ye = contiguous_grad(ye.reshape(e, b, c, d)).transpose(0, 1)
@@ -139,25 +148,45 @@ def _dispatch_gather(p, x: torch.Tensor, top_w, top_e, mc: MoeConfig,
     slot = torch.where(keep, top_e * c + pos, e * c)        # (B,S,k)
     flat_slot = slot.reshape(b, s * k)
     token_idx = torch.arange(s, device=x.device).repeat_interleave(k)
-    token_of_slot = torch.zeros((b, e * c + 1), dtype=torch.long,
-                                device=x.device).scatter_(
+    token_of_slot = zeros((b, e * c + 1), ("batch", None), dtype=torch.long,
+                          device=x.device).scatter_(
         1, flat_slot, token_idx.expand(b, -1))[:, :e * c]
-    filled = torch.zeros((b, e * c + 1), dtype=torch.bool,
-                         device=x.device).scatter_(
+    filled = zeros((b, e * c + 1), ("batch", None), dtype=torch.bool,
+                   device=x.device).scatter_(
         1, flat_slot, flat_slot < e * c)[:, :e * c]
     xe = torch.gather(x, 1, token_of_slot[..., None].expand(-1, -1, d))
     xe = torch.where(filled[..., None], xe, 0.0)            # (B,E*C,d)
     xe = constrain(xe.reshape(b, e, c, d),
                    ("batch", "experts", None, "d_model"))
     ye = _moe_experts(p, xe, kind).reshape(b, e * c, d)
-    w_of_slot = torch.zeros((b, e * c + 1), dtype=top_w.dtype,
-                            device=x.device).scatter_(
+    w_of_slot = zeros((b, e * c + 1), ("batch", None), dtype=top_w.dtype,
+                      device=x.device).scatter_(
         1, flat_slot, top_w.reshape(b, s * k))[:, :e * c]
     weighted = ye * w_of_slot[..., None].to(ye.dtype)
     weighted = torch.where(filled[..., None], weighted, 0.0)
-    return torch.zeros((b, s, d), dtype=weighted.dtype,
-                       device=x.device).scatter_add_(
-        1, token_of_slot[..., None].expand(-1, -1, d), weighted)
+    return _add_to_tokens(token_of_slot, weighted, s)
+
+
+def _add_to_tokens(token_of_slot, weighted, s: int):
+    """(B, E*C, d) weighted slot outputs added to their tokens, (B, S,
+    d). On a mesh each device adds the slots of its own experts (their
+    shard of E*C), a partial sum that the constraint reduces over the
+    experts axis, as the combine einsum's is (DTensor's own in-place
+    scatter-add gives its output placements its shards do not have)."""
+    def add(tos, w):
+        out = torch.zeros((w.shape[0], s, w.shape[2]), dtype=w.dtype,
+                          device=w.device)
+        return out.scatter_add_(1, tos[..., None].expand(-1, -1,
+                                                        w.shape[2]), w)
+
+    if not isinstance(weighted, DTensor):
+        return add(token_of_slot, weighted)
+    mesh, places = weighted.device_mesh, tuple(weighted.placements)
+    tos = token_of_slot.redistribute(mesh, places)
+    out = run_local_sum(add, [tos, weighted],
+                        (weighted.shape[0], s, weighted.shape[2]),
+                        [Partial() if p == Shard(1) else p for p in places])
+    return constrain(out, ("batch", "seq", "d_model"))
 
 
 def moe_mlp(p, x: torch.Tensor, cfg: ModelConfig,
@@ -168,13 +197,17 @@ def moe_mlp(p, x: torch.Tensor, cfg: ModelConfig,
     batch size, which for its one token a group is dropless.
     """
     mc = cfg.moe
-    # The shared experts go first, so that the routed experts' combine
-    # is the layer's last product: a checkpointed layer's recomputation
-    # (non-reentrant, it stops once the tensors the backward saved are
-    # rebuilt) then stops before it, as XLA drops a recomputed op whose
-    # result the backward does not read.
-    shared = mlp(p["shared"], x, cfg.mlp) if mc.n_shared else None
-    logits = x @ p["router"].to(x.dtype)                    # (B,S,E)
+    # XLA drops a recomputed op whose result the backward does not read;
+    # the layer checkpoint's recomputation (non-reentrant) stops once the
+    # tensors the backward saved are rebuilt, that is before the last op
+    # that saves one computes. The shared experts go first, so that the
+    # routed experts' combine is that op, and their output projection
+    # goes through ``layers.kept`` (the layer's checkpoint keeps its
+    # output, ``LM._run_stage``): neither runs in the recomputation.
+    shared = mlp(p["shared"], x, cfg.mlp, keep_out=True) \
+        if mc.n_shared else None
+    logits = constrain(x @ p["router"].to(x.dtype),
+                       ("batch", None, "experts"))          # (B,S,E)
     top_w, top_e, aux = _routing(logits, mc)
     if mc.dispatch == "einsum":
         y = _dispatch_einsum(p, x, top_w, top_e, mc, cfg.mlp, capacity)

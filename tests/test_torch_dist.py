@@ -412,23 +412,7 @@ for limit in (True, False):
 print(json.dumps(out))
 """
 
-REF_CELLS = r"""
-import json, re
-import numpy as np, jax
-from jax.sharding import Mesh
-import repro.launch.inputs as inputs
-import repro.configs as cfgs
-from repro.launch import hlo as H
-from repro.configs.shapes import SHAPES, ShapeCell
-for s in (64, 1024):
-    SHAPES[f"tiny_train_{s}"] = ShapeCell(f"tiny_train_{s}", s, 8, "train")
-    SHAPES[f"tiny_prefill_{s}"] = ShapeCell(f"tiny_prefill_{s}", s, 8,
-                                            "prefill")
-    SHAPES[f"tiny_decode_{s}"] = ShapeCell(f"tiny_decode_{s}", s, 8,
-                                           "decode")
-cfgs.get_config = lambda name: cfgs.get_reduced(name)
-inputs.cfgs = cfgs
-mesh = Mesh(np.array(jax.devices()).reshape(2, 4), ("data", "model"))
+REF_AXIS = r"""
 # The replica groups of the 2x4 mesh's two axes, in both of XLA's forms.
 AXIS = {"[2,4]<=[8]": "model", "{{0,1,2,3},{4,5,6,7}}": "model",
         "[4,2]<=[2,4]T(1,0)": "data", "{{0,4},{1,5},{2,6},{3,7}}": "data"}
@@ -449,10 +433,37 @@ def bytes_by_axis(text):
                      for o in re.findall(r"%([\w.\-]+)", ins.text)
                      if o in comp.instructions)
             g = re.search(r"replica_groups=(\S+?)(,\s|$)", ins.text)
-            axis = AXIS[g.group(1)]
+            if g:
+                axis = AXIS[g.group(1)]
+            else:   # a collective-permute: pairs within a row of 4 move
+                # along the model axis
+                pairs = re.findall(r"\{(\d+),(\d+)\}", ins.text.split(
+                    "source_target_pairs=")[1].split("}}")[0] + "}")
+                axis = "model" if all(int(a) // 4 == int(b) // 4
+                                      for a, b in pairs) else "data"
             out[axis] = out.get(axis, 0.0) + m * ob
     return out
 
+"""
+
+REF_CELLS = r"""
+import json, re
+import numpy as np, jax
+from jax.sharding import Mesh
+import repro.launch.inputs as inputs
+import repro.configs as cfgs
+from repro.launch import hlo as H
+from repro.configs.shapes import SHAPES, ShapeCell
+for s in (64, 1024):
+    SHAPES[f"tiny_train_{s}"] = ShapeCell(f"tiny_train_{s}", s, 8, "train")
+    SHAPES[f"tiny_prefill_{s}"] = ShapeCell(f"tiny_prefill_{s}", s, 8,
+                                            "prefill")
+    SHAPES[f"tiny_decode_{s}"] = ShapeCell(f"tiny_decode_{s}", s, 8,
+                                           "decode")
+cfgs.get_config = lambda name: cfgs.get_reduced(name)
+inputs.cfgs = cfgs
+mesh = Mesh(np.array(jax.devices()).reshape(2, 4), ("data", "model"))
+""" + REF_AXIS + r"""
 
 out = {}
 for s in (64, 1024):
@@ -598,7 +609,7 @@ def test_scaled_microbatch_count_equals_the_full_loop(port_cells):
 # -- the non-dense families' cells -------------------------------------------------
 
 PORT_FAMILY_CELLS = r"""
-import json
+import dataclasses, json
 from repro_torch.configs.shapes import SHAPES, ShapeCell
 for s, kinds in ((96, ("train", "prefill")), (1024, ("train",))):
     for kind in kinds:
@@ -611,12 +622,17 @@ dryrun.quiet()
 mesh = dryrun.fake_mesh(False, (2, 4))
 
 
-def count(arch, shape, **kw):
-    cfg = cell_config(arch, shape, mesh, base=get_reduced(arch))
+def count(arch, shape, dispatch=None, **kw):
+    base = get_reduced(arch)
+    if dispatch:
+        base = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, dispatch=dispatch))
+    cfg = cell_config(arch, shape, mesh, base=base)
     cell = build_cell(arch, shape, mesh, cfg=cfg, **kw)
     a, _ = hlo.analyze(cell.fn, *cell.args, mesh=mesh, counter=cell.counter)
     return {"flops": a.dot_flops, "bytes": a.collective_bytes,
             "count": a.collective_count, "trips": a.loop_trips,
+            "axis": a.collective_bytes_by_axis,
             "args": a.memory["argument_size_in_bytes"],
             "temp": a.memory["temp_size_in_bytes"],
             "one_chunk": cell.meta["count_one_chunk"]}
@@ -628,11 +644,13 @@ for kind in ("train", "prefill"):
         out[f"jamba_{kind}_{one}"] = count("jamba-v0.1-52b", f"tiny_{kind}_96",
                                            count_one_chunk=one)
 out["deepseek"] = count("deepseek-moe-16b", "tiny_train_1024")
+out["deepseek_gather"] = count("deepseek-moe-16b", "tiny_train_1024",
+                               dispatch="gather")
 print(json.dumps(out))
 """
 
 REF_FAMILY_CELLS = r"""
-import json
+import dataclasses, json, re
 import numpy as np, jax
 from jax.sharding import Mesh
 import repro.launch.inputs as inputs
@@ -640,16 +658,24 @@ import repro.configs as cfgs
 from repro.launch import hlo as H
 from repro.configs.shapes import SHAPES, ShapeCell
 SHAPES["tiny_train_1024"] = ShapeCell("tiny_train_1024", 1024, 8, "train")
-cfgs.get_config = lambda name: cfgs.get_reduced(name)
 inputs.cfgs = cfgs
 mesh = Mesh(np.array(jax.devices()).reshape(2, 4), ("data", "model"))
-cell = inputs.build_cell("deepseek-moe-16b", "tiny_train_1024", mesh)
-c = jax.jit(cell.fn, in_shardings=cell.in_shardings,
-            out_shardings=cell.out_shardings).lower(*cell.args).compile()
-a = H.analyze(c.as_text())
-print(json.dumps({"deepseek": {
-    "args": c.memory_analysis().argument_size_in_bytes,
-    "flops": a.dot_flops, "bytes": a.collective_bytes}}))
+""" + REF_AXIS + r"""
+out = {}
+for key, dispatch in (("deepseek", "einsum"), ("deepseek_gather", "gather")):
+    def reduced(name, dispatch=dispatch):
+        cfg = cfgs.get_reduced(name)
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=dispatch))
+    cfgs.get_config = reduced
+    cell = inputs.build_cell("deepseek-moe-16b", "tiny_train_1024", mesh)
+    c = jax.jit(cell.fn, in_shardings=cell.in_shardings,
+                out_shardings=cell.out_shardings).lower(*cell.args).compile()
+    a = H.analyze(c.as_text())
+    out[key] = {"args": c.memory_analysis().argument_size_in_bytes,
+                "flops": a.dot_flops, "bytes": a.collective_bytes,
+                "axis": bytes_by_axis(c.as_text())}
+print(json.dumps(out))
 """
 
 
@@ -687,24 +713,64 @@ def test_mamba_counted_on_one_chunk_equals_the_full_loop(port_family_cells,
 def test_moe_train_cell_against_the_reference(port_family_cells,
                                               ref_family_cells):
     """deepseek-moe-16b reduced, a train step of 8 x 1,024 tokens on
-    2x4, against the reference's compiled program: argument bytes exact.
-    Dot FLOPs: the combine einsum is not recomputed (its layer's
-    checkpoint stops before it, as XLA drops a recomputed op whose result
-    the backward does not read). What is left: the shared experts'
-    output projection, which the recomputation now runs (non-reentrant
-    checkpointing stops at the layer's last product, and only one of the
-    two final products can be last), and, within 2% of the reference's
-    (measured 1.9%), three of the local experts' weight gradients on the
-    batch gathered over the data axis (DTensor's choice). ROADMAP
-    Queue 3."""
+    2x4, against the reference's compiled program: argument bytes exact,
+    and dot FLOPs exactly the reference's less one recorded difference
+    (ROADMAP Queue 3). Equal: the local experts' products on each data
+    shard's own tokens, forward, recomputed and backward, and a layer
+    checkpoint whose recomputation runs neither the routed combine nor
+    the shared experts' output projection, as XLA drops both. The
+    difference: the top-k weights' gradient through the combine tensor
+    (B, S, E, C). The reference's transpose contracts the local experts
+    in one dot and the capacity slots in a second, 2 x B x S x k x C a
+    MoE layer; torch's einsum backward contracts the slots in its
+    product and the two local experts in an elementwise sum. The same
+    values: each sum has one nonzero term, a one-hot's."""
     from repro_torch.configs import get_reduced
+    from repro_torch.models.moe import _capacity
 
     port, ref = port_family_cells["deepseek"], ref_family_cells["deepseek"]
     assert port["args"] == ref["args"]
     cfg = get_reduced("deepseek-moe-16b")
     s, b_local = 1024, 8 // 2
     moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
-    shared_out = 2 * b_local * s * \
-        (cfg.moe.d_expert * cfg.moe.n_shared // 4) * cfg.d_model * moe_layers
-    extra = port["flops"] - ref["flops"] - shared_out
-    assert 0 <= extra <= 0.02 * ref["flops"], (extra, ref["flops"])
+    slots_dot = 2 * b_local * s * cfg.moe.top_k * _capacity(s, cfg.moe) * \
+        moe_layers
+    assert port["flops"] == ref["flops"] - slots_dot, \
+        (port["flops"], ref["flops"], slots_dot)
+
+
+def test_moe_train_cell_gradient_reductions_equal_the_reference(
+        port_family_cells, ref_family_cells):
+    """The deepseek cell's collective bytes over the data axis within
+    1e-3 of the reference's, as the granite train cells': each weight
+    gradient's reduction, the local experts' and the router's each model
+    shard's own columns, and no gather of the expert operands over the
+    data axis. Measured 196 B above the reference's 1,153,344: the port all-reduces
+    the load-balance loss's two expert statistics whole (8 floats) in
+    the forward and in the recomputation, the reference each model
+    shard's 2 floats and one of them again, and the loss's scalars in
+    one all-reduce where the reference has four."""
+    port = port_family_cells["deepseek"]["axis"]["data"]
+    ref = ref_family_cells["deepseek"]["axis"]["data"]
+    assert abs(port - ref) <= 1e-3 * ref, (port, ref)
+
+
+def test_moe_gather_train_cell_against_the_reference(port_family_cells,
+                                                     ref_family_cells):
+    """The same cell with the gather dispatch: each device adds its own
+    experts' weighted slots back to their tokens, a partial sum reduced
+    over the experts axis as the combine einsum's is
+    (``moe._add_to_tokens``). Argument
+    bytes and dot FLOPs exactly the reference's (no einsum, so no
+    recorded difference). The data axis carries 261,948 B fewer: the
+    routing probabilities, (B, S, E) f32, which XLA's program gathers
+    over the data axis at top_k in the forward and the recomputation
+    (262,144 B a layer, as DTensor's reduce-scatter of their gradient in
+    the einsum cell), here 131,072 B a layer; less the 196 B of
+    statistics and scalars of the einsum cell."""
+    port = port_family_cells["deepseek_gather"]
+    ref = ref_family_cells["deepseek_gather"]
+    assert port["args"] == ref["args"]
+    assert port["flops"] == ref["flops"], (port["flops"], ref["flops"])
+    gap = ref["axis"]["data"] - port["axis"]["data"]
+    assert gap == 2 * (262_144 - 131_072) - 196, gap

@@ -219,8 +219,9 @@ def test_sharded_decode_breaks_ties_across_shards_as_engine_generate(ranks):
 
 # -- the non-dense families' train step on the mesh --------------------------------
 
+# "arch:dispatch" runs the config with the other MoE dispatch.
 FAMILIES = ["deepseek-moe-16b", "jamba-v0.1-52b", "rwkv6-3b", "whisper-tiny",
-            "internvl2-2b"]
+            "internvl2-2b", "deepseek-moe-16b:gather"]
 
 FAMILY_MESH = r"""
 import dataclasses, json, sys, tempfile
@@ -247,9 +248,14 @@ def work(rank, world, store, out):
     # 64 tokens: Mamba's two chunks of 32, RWKV's chunked form at 32.
     SHAPES["mesh_train"] = ShapeCell("mesh_train", 64, 8, "train")
     res = {}
-    for arch in ARCHS:
+    for label in ARCHS:
+        arch, _, dispatch = label.partition(":")
+        base = get_reduced(arch)
+        if dispatch:
+            base = dataclasses.replace(base, moe=dataclasses.replace(
+                base.moe, dispatch=dispatch))
         cfg = dataclasses.replace(
-            cell_config(arch, "mesh_train", mesh, base=get_reduced(arch)),
+            cell_config(arch, "mesh_train", mesh, base=base),
             dtype="float32")
         batch = batch_for(DataConfig(seq_len=64, global_batch=8,
                                      vocab=cfg.vocab, packed=True,
@@ -282,7 +288,7 @@ def work(rank, world, store, out):
             t = dm[name]
             t = t.full_tensor() if hasattr(t, "full_tensor") else t
             terms[name] = [pm[name].item(), t.item()]
-        res[arch] = {"terms": terms, "mu_rel": mu_rel, "param_abs": p_abs,
+        res[label] = {"terms": terms, "mu_rel": mu_rel, "param_abs": p_abs,
                      "param_far": p_far, "lr": opt.learning_rate,
                      "frontend": str(b_sh.get("frontend"))}
     with open(f"{out}/{rank}.json", "w") as f:
@@ -320,7 +326,9 @@ MU_TOL = {"whisper-tiny": 5e-4}
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_family_sharded_step_equals_make_train_step(family_ranks, arch):
     """jit_train_step of each non-dense family's reduced config on 2x4
-    (the cell's rules, f32 activations, 8 x 64 packed tokens with
+    (deepseek-moe-16b also with the gather dispatch, whose tokens go
+    back by each device's scatter-add of its own experts' slots; the
+    cell's rules, f32 activations, 8 x 64 packed tokens with
     whisper's frames and internvl2's patches placed by train_shardings)
     against make_train_step: the loss and the MoE aux within 1e-6
     relative on every rank, AdamW's first moment (0.1 x the gradient)
