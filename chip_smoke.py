@@ -34,20 +34,39 @@ Phases, each printing one JSON line:
                the halo is in flight, or after the remote one; use_kernel:
                the kernels, or their plain versions on the card), each
                against the float64 oracle, its launches and its step's
-               time by measure_cuda; the two orderings with the kernels
-               must give the same y bit for bit
+               time by measure_cuda, eager (``run.step``) and as a CUDA
+               graph's replay (``run.replay``) in turns; the two
+               orderings with the kernels must give the same y bit for
+               bit, and each replay the eager step's
   demo         demo_spmv_impls (the JAX package's 16 x 16 dense op set)
                through the wallclock evaluator on the card over all 280
                schedules of spmv_dag() at 2 streams, every one gated:
                best/worst us, spread, wall seconds
   race         two schedules with one sync removed must fail the value
-               gate (and pass with it)
+               gate (and pass with it); the same two through the CUDA
+               graph runner (jit_runner), where whether the gate sees
+               the race is reported, and only the intact schedules must
+               pass
   main_path    the paper's loop: spmv_dag -> MCTS (budget 400) measured
                on real streams -> labels -> features -> Algorithm 1 ->
                rules, with every kernel's launch count over that run;
                then a second sweep of the same schedules under the same
                objective without a store (``rho_repeat``: Spearman rho
                of the two)
+  graph        the same 280 schedules under the JAX package's compiled
+               objective: each captured into one CUDA graph by
+               jit_runner (ExecutorEvaluator(cuda_graph=True)), gated on
+               a replay from poisoned buffers, then timed by replays:
+               best/median/worst us, spread, a second store-free sweep
+               (``rho_repeat``), rho against main_path's eager times and
+               against the H100 model's makespans, two sweeps under the
+               paper's windowed protocol over replays (``windowed``:
+               their rho, class retention and rules), the rules pipeline
+               on the graph times (both tables printed); one replay
+               traced by
+               torch.profiler in a child process (``--graph-trace``: a
+               fourth profiler session in this process would record
+               nothing), whose trace must name ell_spmv and pack
   model        the H100 machine model (core/costmodel.py's Machine
                defaults) on spmv_dag at the paper's size in float32: the
                280 schedules' analytic makespans through ``sim`` and
@@ -345,6 +364,11 @@ DIST_FLOPS_TOL = 1e-3
 # allows 1e-6 of max |value| per tensor.
 DIST_STEP_RTOL = 1e-6
 DIST_TIMEOUT_S = 600
+# The graph phase's child, which traces one replay at the paper's size.
+GRAPH_TRACE_TIMEOUT_S = 300
+# The graph phase's windowed sweeps: replays back to back for 5 ms, the
+# median of 3 such windows a schedule (two sweeps of 280: ~20 s).
+GRAPH_WINDOWED = {"t_measure_s": 0.005, "repeats": 3}
 
 
 
@@ -2585,7 +2609,11 @@ def phase_distributed(A, parts, x, dev) -> dict:
     use_kernel=False, some with it), the two orderings with the kernels
     bit for bit equal, and each case's step timed by the paper's
     measure_cuda: 0.01 s windows taken in turns (the four cases, then
-    the four reversed, three times), the median of each case's six."""
+    the four reversed, three times), the median of each case's six.
+    ``run(x)`` goes through the ordering's CUDA graph (jit_runner), and
+    its y must equal the eager step's bit for bit; the graph's replay
+    (``run.replay``) is timed beside the eager step (``run.step``), in
+    the same turns."""
     from repro_torch.core.bench import measure_cuda
     from repro_torch.spmv.distributed import make_distributed_spmv
 
@@ -2611,20 +2639,29 @@ def phase_distributed(A, parts, x, dev) -> dict:
             if (spmv_launches > 0) != use_kernel:
                 raise AssertionError(f"distributed {name}: launched "
                                      f"{launched}")
+            env = run.step()
+            torch.cuda.synchronize()
+            if not np.array_equal(y, (env["yL"] + env["yR"]).cpu().numpy()):
+                raise AssertionError(f"distributed {name}: the graph's y "
+                                     "is not the eager step's")
             ys[overlap_local, use_kernel] = y
             runs.append(run)
             cases.append({"overlap_local": overlap_local,
                           "use_kernel": use_kernel, "rel_err": rel,
                           "launches": {k: n for k, n in launched.items()
                                        if n},
-                          "us_windows": []})
+                          "replay_equals_step": True,
+                          "us_windows": [], "replay_us_windows": []})
     turns = list(range(len(cases)))
     for _ in range(3):
         for i in turns + turns[::-1]:
             cases[i]["us_windows"].append(
                 measure_cuda(runs[i].step, dev) * 1e6)
+            cases[i]["replay_us_windows"].append(
+                measure_cuda(runs[i].replay, dev) * 1e6)
     for case in cases:
         case["us"] = statistics.median(case["us_windows"])
+        case["replay_us"] = statistics.median(case["replay_us_windows"])
     bit_equal = bool(np.array_equal(ys[True, True], ys[False, True]))
     if not bit_equal:
         raise AssertionError("distributed: the two orderings with the "
@@ -2669,10 +2706,13 @@ def phase_demo(dev) -> dict:
 
 
 def phase_race(spmv, dev) -> dict:
-    """Both checks must be caught by the value gate, and pass intact."""
+    """Both checks must be caught by the value gate, and pass intact.
+    Through the CUDA graph runner (``graph_checks``) the intact schedules
+    must pass, and whether the gate caught the race is reported: in a
+    graph a race may or may not show."""
     from repro_torch.core.dag import (BoundOp, Graph, Op, OpKind, Schedule,
                                       spmv_dag)
-    from repro_torch.core.executor import op_impl, run_items
+    from repro_torch.core.executor import GraphRunner, op_impl, run_items
     from repro_torch.core.sync import expand
     from repro_torch.engine.wallclock import (ExecutorEvaluator,
                                               reference_schedule)
@@ -2685,10 +2725,31 @@ def phase_race(spmv, dev) -> dict:
         try:
             ev.check(run_items(g, cut, ev.impls, dev), f"without {drop}")
         except AssertionError as e:
-            return {"dropped": drop, "caught": True,
-                    "gate": str(e).strip().splitlines()[0][:160]}
-        raise AssertionError(f"removing {drop} was not caught by the gate")
+            out = {"dropped": drop, "caught": True,
+                   "gate": str(e).strip().splitlines()[0][:160]}
+        else:
+            raise AssertionError(f"removing {drop} was not caught by the "
+                                 "gate")
+        # Through the graph: the first call captures (its eager warm-up
+        # and its replay write every buffer), so the gated call is a
+        # replay from poisoned buffers.
+        seen = None
+        for its in (items, cut):
+            run = GraphRunner(g, its, ev.impls, dev)
+            run(ev.env)
+            try:
+                ev.check(run, "as a CUDA graph")
+            except AssertionError as e:
+                if its is items:
+                    raise
+                seen = str(e).strip().splitlines()[0][:160]
+            finally:
+                run.release()
+        graph_checks.append({"dropped": drop, "caught": seen is not None,
+                             "gate": seen})
+        return out
 
+    graph_checks: list = []
     # 1. Pack delayed on its stream; PostSend's copies no longer wait.
     g = spmv_dag()
     impls = spmv.impls()
@@ -2734,18 +2795,37 @@ def phase_race(spmv, dev) -> dict:
     ev = ExecutorEvaluator(toy, impls=toy_impls, env={"src": src},
                            reset=poison, device=dev)
     toy_race = caught(ev, toy, expand(toy, sched), "CSWE-b4-C")
-    return {"checks": [spmv_race, toy_race]}
+    return {"checks": [spmv_race, toy_race], "graph_checks": graph_checks}
+
+
+def rules_fields(g, schedules, times) -> dict:
+    """The rules pipeline on measured times: labels -> features ->
+    Algorithm 1 -> rules; the table is printed, its sizes returned."""
+    from repro_torch.core.features import featurize
+    from repro_torch.rules import (algorithm1, extract_rulesets,
+                                   label_times, render_rules_table,
+                                   rules_by_class)
+
+    labels = label_times(times)
+    fm = featurize(g, schedules)
+    tree = algorithm1(fm.X, labels.labels)
+    table = render_rules_table(
+        rules_by_class(extract_rulesets(tree, fm.features)), top_k=2)
+    if "performance class" not in table:
+        raise AssertionError("no rules table")
+    print(table, flush=True)
+    return {"classes": labels.n_classes,
+            "class_sizes": np.bincount(labels.labels).tolist(),
+            "features": len(fm.features), "tree_leaves": tree.n_leaves(),
+            "tree_depth": tree.depth(),
+            "tree_error": tree.training_error(fm.X, labels.labels)}
 
 
 def phase_main_path(spmv, A, x, dev) -> tuple:
     from repro_torch.core.dag import spmv_dag
-    from repro_torch.core.features import featurize
     from repro_torch.engine.wallclock import ExecutorEvaluator
     from repro_torch.kernels.pack import kernel as pack_k
     from repro_torch.kernels.spmv import kernel as spmv_k
-    from repro_torch.rules import (algorithm1, extract_rulesets,
-                                   label_times, render_rules_table,
-                                   rules_by_class)
     from repro_torch.search import MCTSSearch, run_search
 
     g = spmv_dag()
@@ -2781,14 +2861,7 @@ def phase_main_path(spmv, A, x, dev) -> tuple:
         raise AssertionError(f"a kernel never ran: {launches}")
 
     times = res.times_array()
-    labels = label_times(times)
-    fm = featurize(g, res.schedules)
-    tree = algorithm1(fm.X, labels.labels)
-    table = render_rules_table(
-        rules_by_class(extract_rulesets(tree, fm.features)), top_k=2)
-    if "performance class" not in table:
-        raise AssertionError("no rules table")
-    print(table, flush=True)
+    rules = rules_fields(g, res.schedules, times)
     best, t_best = res.best()
     return res, {
         "platform": ev.platform, "objective": ev.objective_key(),
@@ -2798,16 +2871,172 @@ def phase_main_path(spmv, A, x, dev) -> tuple:
         "median_us": float(np.median(times)) * 1e6,
         "spread": float(times.max() / times.min()),
         "best_schedule": " ".join(str(i) for i in best.items),
-        "classes": labels.n_classes,
-        "class_sizes": np.bincount(labels.labels).tolist(),
-        "features": len(fm.features), "tree_leaves": tree.n_leaves(),
-        "tree_depth": tree.depth(),
-        "tree_error": tree.training_error(fm.X, labels.labels),
-        "y_rel_err": y_rel, "search_wall_s": wall,
+        **rules, "y_rel_err": y_rel, "search_wall_s": wall,
         "rho_repeat": spearman(times, again),
         "sweep2_best_us": float(min(again)) * 1e6,
         "sweep2_worst_us": float(max(again)) * 1e6,
         "sweep2_wall_s": wall_again, "launches": launches}
+
+
+def phase_graph(spmv, res, dev) -> dict:
+    """The main path's schedules under the JAX package's compiled
+    objective: every schedule of spmv_dag() at 2 streams captured into
+    one CUDA graph (ExecutorEvaluator(cuda_graph=True) over jit_runner),
+    gated on a replay from poisoned buffers and timed by replays (the
+    main path's repeats and warmup); a second, store-free sweep; Spearman
+    rho against the first sweep, against the main path's eager times and
+    against the H100 model; two more sweeps under the paper's windowed
+    protocol (GRAPH_WINDOWED: replays back to back, a sample the graph's
+    device time), their rho and the share of schedules both label alike;
+    the rules pipeline on the graph times and on the first windowed
+    sweep's (both tables printed); one
+    replay of the fastest schedule traced in a child process, whose
+    kernels must include ell_spmv and pack (launch counters count the
+    capture, not a replay)."""
+    from repro_torch.core.dag import spmv_dag
+    from repro_torch.core.enumerate import enumerate_schedules
+    from repro_torch.engine.wallclock import ExecutorEvaluator
+    from repro_torch.rules import label_times
+
+    g = spmv_dag()
+    objective = dict(impls=spmv.impls(), env=spmv.env(), reset=spmv.poison,
+                     repeats=20, warmup=3, device=dev,
+                     store_tag=spmv.store_tag, cuda_graph=True)
+    scheds = list(enumerate_schedules(g, 2))
+    ev = ExecutorEvaluator(g, **objective)
+    t0 = time.perf_counter()
+    times = np.asarray(ev.evaluate(scheds))
+    wall = time.perf_counter() - t0
+    if ev.n_checked != len(scheds):
+        raise AssertionError(f"graph: {ev.n_checked} gated of "
+                             f"{len(scheds)} schedules")
+    t0 = time.perf_counter()
+    again = np.asarray(ExecutorEvaluator(g, **objective).evaluate(scheds))
+    wall_again = time.perf_counter() - t0
+    # The paper's protocol over replays: back to back for a window, no
+    # drain between them, so a sample is the graph's device time.
+    t0 = time.perf_counter()
+    windowed = [np.asarray(ExecutorEvaluator(g, **{
+        **objective, **GRAPH_WINDOWED}).evaluate(scheds)) for _ in range(2)]
+    wall_windowed = time.perf_counter() - t0
+    if not all(np.isfinite(t).all() and t.min() > 0.0
+               for t in (times, again, *windowed)):
+        raise AssertionError("graph: a time is not finite and positive")
+    eager = dict(zip((s.key() for s in res.schedules), res.times_array()))
+    both = [i for i, s in enumerate(scheds) if s.key() in eager]
+    model = phase_model(scheds, times, wall)
+    rules = rules_fields(g, scheds, times)
+    print("windowed:", flush=True)
+    windowed_rules = rules_fields(g, scheds, windowed[0])
+    kept = [label_times(w).labels for w in windowed]
+    best = int(np.argmin(times))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--graph-trace",
+         str(best)], capture_output=True, text=True,
+        timeout=GRAPH_TRACE_TIMEOUT_S, cwd=ROOT)
+    if proc.returncode != 0:
+        raise AssertionError(f"graph trace: exit {proc.returncode}\n"
+                             f"{proc.stderr[-6000:]}")
+    traced = json.loads(proc.stdout.strip().splitlines()[-1])
+    traced["process_s"] = time.perf_counter() - t0
+    missing = [k for k in ("ell_spmv", "pack")
+               if not any(k in name for name in traced["kernels"])]
+    if missing:
+        raise AssertionError(f"graph: no {missing} kernel in a traced "
+                             f"replay: {sorted(traced['kernels'])}")
+    return {
+        "objective": ev.objective_key(), "schedules": len(scheds),
+        "gated": ev.n_checked, "best_us": float(times.min()) * 1e6,
+        "median_us": float(np.median(times)) * 1e6,
+        "worst_us": float(times.max()) * 1e6,
+        "spread": float(times.max() / times.min()),
+        "best_schedule": " ".join(str(i) for i in scheds[best].items),
+        "rho_repeat": spearman(times, again),
+        "sweep2_best_us": float(again.min()) * 1e6,
+        "sweep2_median_us": float(np.median(again)) * 1e6,
+        "sweep2_worst_us": float(again.max()) * 1e6,
+        "rho_vs_eager": spearman(times[both], [eager[scheds[i].key()]
+                                               for i in both]),
+        "eager_paired": len(both),
+        "rho_model_vs_graph": model["rho_model_vs_card"],
+        "model_distinct_makespans": model["distinct_makespans"],
+        "model_same_class_share": model["same_class_share"],
+        **rules, "windowed": {
+            **GRAPH_WINDOWED,
+            "best_us": float(windowed[0].min()) * 1e6,
+            "median_us": float(np.median(windowed[0])) * 1e6,
+            "worst_us": float(windowed[0].max()) * 1e6,
+            "spread": float(windowed[0].max() / windowed[0].min()),
+            "best_schedule": " ".join(
+                str(i) for i in scheds[int(np.argmin(windowed[0]))].items),
+            "rho_repeat": spearman(*windowed),
+            "rho_vs_graph": spearman(windowed[0], times),
+            "class_retention": float(np.mean(kept[0] == kept[1])),
+            **windowed_rules, "wall_s": wall_windowed},
+        "traced_replay": traced, "wall_s": wall,
+        "sweep2_wall_s": wall_again}
+
+
+def graph_trace_main(index: int) -> int:
+    """The child of phase_graph: the SpMV at the paper's size, schedule
+    ``index`` of spmv_dag() at 2 streams captured by jit_runner, then one
+    replay under torch.profiler (trace ``chiprun_out/graph_replay_trace.
+    json``): device ms and count per kernel name (a graph runs the halo
+    copies as the driver's ``memcpy32_post`` kernels), memcpy events, the
+    device span of the replay, and the launches counted at the capture;
+    one JSON line."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.dag import spmv_dag
+    from repro_torch.core.enumerate import enumerate_schedules
+    from repro_torch.core.executor import jit_runner
+    from repro_torch.device import resolve_device
+    from repro_torch.spmv.distributed import from_reference
+    from repro_torch.spmv.matrix import (band_matrix, partition,
+                                         stack_partitions)
+
+    dev = resolve_device()
+    A = band_matrix(n=PAPER_N, nnz=PAPER_NNZ, seed=0)
+    x = np.random.default_rng(1).standard_normal(PAPER_N).astype(
+        np.float32)
+    spmv = from_reference(stack_partitions(partition(A, RANKS)), x, dev)
+    g = spmv_dag()
+    sched = list(enumerate_schedules(g, 2))[index]
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    run = jit_runner(g, sched, spmv.impls(), dev)
+    run(spmv.env())
+    captured = {k: c.launches for k, c in counters.items() if c.launches}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        run(spmv.env())
+        torch.cuda.synchronize()
+    trace = os.path.join(ROOT, "chiprun_out", "graph_replay_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    p.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy")]
+    kernels: dict = {}
+    for e in events:
+        if e["cat"] == "kernel":
+            ms, n = kernels.get(e["name"], (0.0, 0))
+            kernels[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    start = min((e["ts"] for e in events), default=0.0)
+    end = max((e["ts"] + e["dur"] for e in events), default=0.0)
+    print(json.dumps({
+        "schedule": " ".join(str(i) for i in sched.items),
+        "kernels": {k: {"ms": ms, "count": n}
+                    for k, (ms, n) in kernels.items()},
+        "memcpy_events": sum(e["cat"] == "gpu_memcpy" for e in events),
+        "device_span_us": end - start,
+        "launches_at_capture": captured,
+        "trace": os.path.relpath(trace, ROOT)}), flush=True)
+    return 0
 
 
 DRIVER_SPANS = ("driver.propose", "driver.acquire", "driver.evaluate",
@@ -3179,9 +3408,9 @@ def phase_stepdag() -> dict:
         "wall_s": time.perf_counter() - t_phase}
 
 
-def phase_model(res, card_wall_s: float) -> dict:
-    """The H100 machine model on the main path's schedules, against the
-    times the card measured for them."""
+def phase_model(schedules, card, card_wall_s: float) -> dict:
+    """The H100 machine model on ``schedules``, against the times the
+    card measured for them (``card``, in seconds)."""
     import dataclasses
 
     from repro_torch.core import Machine, spmv_dag
@@ -3191,14 +3420,14 @@ def phase_model(res, card_wall_s: float) -> dict:
     g = spmv_dag(rows_per_rank=PAPER_N // RANKS,
                  nnz_per_rank=PAPER_NNZ // RANKS, value_bytes=4)
     t0 = time.perf_counter()
-    model = make_evaluator(g, "vectorized").evaluate(res.schedules)
+    model = make_evaluator(g, "vectorized").evaluate(schedules)
     vec_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sim = make_evaluator(g, "sim").evaluate(res.schedules)
+    sim = make_evaluator(g, "sim").evaluate(schedules)
     sim_s = time.perf_counter() - t0
     if model != sim:
         raise AssertionError("vectorized and sim makespans differ")
-    card = res.times_array()
+    card = np.asarray(card)
     mlab, clab = label_times(model), label_times(card)
     # Makespans within a picosecond differ only by the order of float
     # sums: ties. A model that gives every schedule one makespan cannot
@@ -3280,7 +3509,9 @@ def main() -> int:
     emit("race", **phase_race(spmv, dev))
     res, main_path = phase_main_path(spmv, A, x, dev)
     emit("main_path", **main_path)
-    emit("model", **phase_model(res, main_path["search_wall_s"]))
+    emit("graph", **phase_graph(spmv, res, dev))
+    emit("model", **phase_model(res.schedules, res.times_array(),
+                                main_path["search_wall_s"]))
     driver = phase_driver(spmv, dev)
     emit("driver", **driver)
     emit("rpc", **phase_rpc())
@@ -3398,4 +3629,6 @@ if __name__ == "__main__":
         sys.exit(dist_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--train-family":
         sys.exit(train_family_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--graph-trace":
+        sys.exit(graph_trace_main(int(sys.argv[2])))
     sys.exit(main())

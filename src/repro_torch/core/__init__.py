@@ -18,7 +18,7 @@ from repro_torch.core.features import (DegenerateFeatureSpaceError, Feature,
                                        FeatureBasis, FeatureMatrix,
                                        FeatureUniverse, apply_features,
                                        featurize, featurize_like)
-from repro_torch.core.executor import build_runner, op_impl
+from repro_torch.core.executor import build_runner, jit_runner, op_impl
 from repro_torch.core.stepdag import (StepCosts, train_step_dag,
                                       with_comm_durations)
 from repro_torch.core.sync import ExpandedItem, expand, expanded_names
@@ -51,7 +51,7 @@ __all__ = [
     "Machine", "SimResult", "makespan", "simulate",
     "DegenerateFeatureSpaceError", "Feature", "FeatureBasis",
     "FeatureMatrix", "FeatureUniverse", "apply_features", "featurize",
-    "featurize_like", "build_runner", "op_impl",
+    "featurize_like", "build_runner", "jit_runner", "op_impl",
     "Labeling", "label_times",
     "DecisionTree", "TreeSearchTrace", "algorithm1",
     "Rule", "RuleSet", "annotate_vs_canonical", "class_range_accuracy",

@@ -21,6 +21,16 @@ Per canonical-unique schedule :class:`ExecutorEvaluator`
      holds host syncs (CES), so host wall time is the objective, as in
      the paper.
 
+With ``cuda_graph=True`` step 1 is :func:`repro_torch.core.executor.
+jit_runner` instead, called once (it warms up, captures the schedule
+into one CUDA graph and replays it), and every later call, the gated run
+included, is a replay of that graph: the JAX package's objective, which
+times ``jax.jit(build_runner(...))``. The captures of one evaluator
+share one memory pool, and each schedule's graph is released once the
+next one is captured (a pool lives while a graph captured into it
+does). Its objective key holds ``:graph``, so stores of the two
+objectives never mix.
+
 The objective key names the platform (card and compute capability, or
 ``cpu``), the protocol and the kernels' build
 (:func:`repro_torch.kernels.build.source_hash`), so times from
@@ -41,7 +51,8 @@ import torch
 
 from repro_torch.core.bench import measure_cuda
 from repro_torch.core.dag import BoundOp, Graph, OpKind, Schedule
-from repro_torch.core.executor import OpImpl, build_runner, op_impl
+from repro_torch.core.executor import (OpImpl, build_runner, host_wait,
+                                       jit_runner, op_impl)
 from repro_torch.device import platform_string, resolve_device
 from repro_torch.engine.base import EvaluatorBase
 from repro_torch.kernels.build import source_hash
@@ -112,7 +123,9 @@ class ExecutorEvaluator(EvaluatorBase):
     (``store=``, ``store_path=``, ``store_tag=``) go to
     :class:`EvaluatorBase`. The graph alone does not say what the impls
     compute, so an evaluator that shares a store with another program
-    passes a ``store_tag`` that names its own.
+    passes a ``store_tag`` that names its own. ``cuda_graph=True``
+    measures replays of each schedule's CUDA graph (the module's
+    docstring).
     """
 
     backend = "torch_wallclock"
@@ -122,6 +135,7 @@ class ExecutorEvaluator(EvaluatorBase):
                  repeats: int = 5, warmup: int = 1,
                  t_measure_s: float | None = None,
                  device: "str | torch.device | None" = None,
+                 cuda_graph: bool = False,
                  **base_kwargs):
         super().__init__(graph, **base_kwargs)
         self.device = resolve_device(device)
@@ -134,6 +148,9 @@ class ExecutorEvaluator(EvaluatorBase):
         if t_measure_s is not None and not t_measure_s >= 0:
             raise ValueError(f"t_measure_s must be >= 0, got {t_measure_s}")
         self.t_measure_s = t_measure_s
+        self.cuda_graph = cuda_graph
+        self._pool = None
+        self._held = None  # the last schedule's graph runner
         self.n_checked = 0
         self._reference: dict | None = None
 
@@ -142,8 +159,17 @@ class ExecutorEvaluator(EvaluatorBase):
         protocol, with which build of the kernels."""
         protocol = ("" if self.t_measure_s is None
                     else f":t_measure={self.t_measure_s}")
+        graph = ":graph" if self.cuda_graph else ""
         return (f"{self.backend}:{self.platform}:repeats={self.repeats}"
-                f":warmup={self.warmup}{protocol}:build={source_hash()}")
+                f":warmup={self.warmup}{protocol}{graph}"
+                f":build={source_hash()}")
+
+    def close(self) -> None:
+        """Release the last schedule's graph, then close the store."""
+        if self._held is not None:
+            self._held.release()
+            self._held = None
+        super().close()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -199,8 +225,25 @@ class ExecutorEvaluator(EvaluatorBase):
                        encoded: np.ndarray | None = None) -> list[float]:
         out: list[float] = []
         for sched in schedules:
-            run = build_runner(self.graph, sched, self.impls, self.device)
-            self.check(run, f"schedule {[str(i) for i in sched.items]}")
+            what = f"schedule {[str(i) for i in sched.items]}"
+            if not self.cuda_graph:
+                run = build_runner(self.graph, sched, self.impls,
+                                   self.device)
+                self.check(run, what)
+                out.append(statistics.median(self.measure(run)))
+                continue
+            if self._pool is None and self.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
+            run = jit_runner(self.graph, sched, self.impls, self.device,
+                             pool=self._pool)
+            run(self.env)  # warm-up, capture, a first replay
+            # A pool lives while a graph captured into it does, so the
+            # last schedule's graph is released only now, once this one
+            # holds the pool.
+            if self._held is not None:
+                self._held.release()
+            self._held = run
+            self.check(run, f"{what} (CUDA graph)")
             out.append(statistics.median(self.measure(run)))
         return out
 
@@ -217,7 +260,8 @@ def demo_spmv_impls(graph: Graph, n: int = 16, seed: int = 0,
     ``np.random.default_rng(seed).normal`` in the JAX package's order
     and rounded to float32, so both packages hold the same bits; the
     products are ``torch.matmul``. On a card the receive buffer is
-    allocated once, here, and WaitRecv, a host wait, returns once its
+    allocated once, here, and WaitRecv, a host wait
+    (:func:`~repro_torch.core.executor.host_wait`), returns once its
     sum is on the card: a CPU op's device work runs on the current
     stream, which no sync item orders before yR.
     """
@@ -226,11 +270,13 @@ def demo_spmv_impls(graph: Graph, n: int = 16, seed: int = 0,
     AL, AR, xL = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
                   .to(dev) for s in ((n, n), (n, n), (n,)))
     recvbuf = torch.zeros(n, dtype=torch.float32, device=dev)
+    summed = torch.cuda.Event() if dev.type == "cuda" else None
 
     def wait_recv(wire: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
         xR = wire + recv
-        if xR.is_cuda:
-            torch.cuda.current_stream(xR.device).synchronize()
+        if summed is not None:
+            summed.record(torch.cuda.current_stream(dev))
+        host_wait(summed)
         return xR
 
     impls = {

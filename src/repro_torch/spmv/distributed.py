@@ -16,7 +16,9 @@ the stacked halo buffer, once, at set-up. The DAG's vertices
     PostSend  enqueue the 2R halo copies on the comm stream, record an
               event (the host does not wait)
     PostRecv  nothing: the halo buffer is preallocated
-    WaitSend  host ``event.synchronize()`` on the copies
+    WaitSend  :func:`~repro_torch.core.executor.host_wait` on the
+              copies (the host blocks; in a CUDA graph the host chain's
+              stream waits)
     WaitRecv  the same: in one process our receives are the
               neighbours' sends, i.e. those very copies
     yL        ELL SpMV kernel over the local parts
@@ -46,7 +48,8 @@ import torch
 
 from repro_torch.core.dag import (BoundOp, Graph, OpKind, Schedule,
                                   spmv_dag, validate_schedule)
-from repro_torch.core.executor import OpImpl, build_runner, op_impl
+from repro_torch.core.executor import (OpImpl, build_runner, host_wait,
+                                       jit_runner, op_impl)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.pack.ops import pack, pack_plain
 from repro_torch.kernels.spmv.kernel import SLICE_ROWS
@@ -136,6 +139,11 @@ class DistributedSpmv:
         if self.comm is None:
             copies()
             return None
+        if torch.cuda.is_current_stream_capturing():
+            # The graph's form of "the host issues the copies after its
+            # CES": the comm stream joins the host chain here. An eager
+            # run adds no sync: the host issued them after it waited.
+            self.comm.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.comm):
             copies()
         done = torch.cuda.Event()
@@ -147,8 +155,7 @@ class DistributedSpmv:
 
     @staticmethod
     def wait(done) -> None:
-        if done is not None:
-            done.synchronize()
+        host_wait(done)
 
     def wait_recv(self, done, halo: torch.Tensor) -> torch.Tensor:
         self.wait(done)
@@ -242,34 +249,41 @@ def make_distributed_spmv(parts: list[RankPartition],
                           ) -> Callable[[np.ndarray], np.ndarray]:
     """``run(x) -> y`` for the partitioned matrix: one direct SpMV step.
 
-    Runs :func:`ordering`'s schedule through the executor and returns
-    y = yL + yR on the host. ``use_kernel=False`` multiplies and packs
-    with the kernels' plain versions on ``device`` (the JAX package's
-    ``ell_matvec_ref``); otherwise a card launches the kernels, and one
-    that fails to build or launch raises. ``run.spmv`` is the device
-    state and ``run.step()`` one step on its ``x``, without the host
-    copies (what ``chip_smoke.py`` times).
+    Runs :func:`ordering`'s schedule compiled, as the JAX package
+    jit-compiles its step: :func:`~repro_torch.core.executor.jit_runner`
+    captures it into a CUDA graph on the first call and replays it on
+    later ones. Returns y = yL + yR on the host. ``use_kernel=False``
+    multiplies and packs with the kernels' plain versions on ``device``
+    (the JAX package's ``ell_matvec_ref``); otherwise a card launches
+    the kernels, and one that fails to build or launch raises.
+    ``run.spmv`` is the device state; ``run.step()`` is one step on its
+    ``x`` through the eager runner and ``run.replay()`` one through the
+    graph, both without the host copies (what ``chip_smoke.py`` times).
     """
     r_n, m = len(parts), parts[0].m
     spmv = from_reference(stack_partitions(parts),
                           np.zeros(r_n * m, np.float32), device, use_kernel)
     g = spmv_dag()
-    runner = build_runner(g, ordering(g, overlap_local), spmv.impls(),
-                          spmv.device)
+    sched = ordering(g, overlap_local)
+    runner = build_runner(g, sched, spmv.impls(), spmv.device)
+    compiled = jit_runner(g, sched, spmv.impls(), spmv.device)
     cuda = spmv.device.type == "cuda"
 
     def step() -> dict:
         return runner(spmv.env())
+
+    def replay() -> dict:
+        return compiled(spmv.env())
 
     def run(x: np.ndarray) -> np.ndarray:
         spmv.x.copy_(torch.from_numpy(
             np.asarray(x, dtype=np.float32).reshape(-1)))
         if cuda:
             torch.cuda.synchronize(spmv.device)
-        env = step()
+        env = replay()
         if cuda:
             torch.cuda.synchronize(spmv.device)
         return (env["yL"] + env["yR"]).cpu().numpy()
 
-    run.spmv, run.step = spmv, step
+    run.spmv, run.step, run.replay = spmv, step, replay
     return run

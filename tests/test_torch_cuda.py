@@ -277,6 +277,171 @@ def test_owned_events_survive_back_to_back_runs(small_spmv):
         assert torch.equal(out[k], v), k
 
 
+# -- the compiled runner: one CUDA graph a schedule ---------------------------
+
+SPMV_OUTPUTS = ("sendbuf", "halo", "yL", "yR")
+
+
+def _outputs(env) -> dict:
+    torch.cuda.synchronize()
+    return {k: env[k].clone() for k in SPMV_OUTPUTS}
+
+
+def _hold_to_plain(spmv, out) -> None:
+    """The kernels' results in ``out`` against their plain versions on
+    the same operands: Pack exactly, yL and yR within 1e-5 of max |y|
+    (the kernel tests' float32 bound)."""
+    assert torch.equal(out["sendbuf"], pack_plain(spmv.x, spmv.send_idx))
+    for part, src, k in ((spmv.local, spmv.x, "yL"),
+                         (spmv.remote, out["halo"], "yR")):
+        plain = ell_spmv_plain(part.vals_t, part.cols_t, src, part.slice_k,
+                               part.perm)
+        assert bool(torch.isfinite(out[k]).all()), k
+        assert float((out[k] - plain).abs().max()
+                     / plain.abs().max()) <= 1e-5, k
+
+
+def test_graph_replays_equal_the_eager_runner_bit_for_bit(small_spmv):
+    """20 seeded schedules at n = 4,096: jit_runner's replay from poisoned
+    buffers gives the eager runner's outputs bit for bit, and a second
+    replay the first's; the kernels' results against their plain
+    versions. Capture counts launches, replays do not."""
+    import repro_torch.core as C
+    from repro_torch.core.executor import build_runner, jit_runner
+    _, _, spmv = small_spmv
+    g = C.spmv_dag()
+    scheds = list(C.enumerate_schedules(g, 2))
+    pool = torch.cuda.graph_pool_handle()
+    runs = []  # a shared pool lives while one of its graphs does
+    for i in np.random.default_rng(0).choice(len(scheds), 20, replace=False):
+        spmv.poison()
+        want = _outputs(build_runner(g, scheds[i], spmv.impls(), "cuda")(
+            spmv.env()))
+        _hold_to_plain(spmv, want)
+        run = jit_runner(g, scheds[i], spmv.impls(), "cuda", pool=pool)
+        before = spmv_k.ell_spmv.launches
+        run(spmv.env())
+        assert spmv_k.ell_spmv.launches == before + 4  # warm-up, capture
+        replays = []
+        for _ in range(2):
+            spmv.poison()
+            replays.append(_outputs(run(spmv.env())))
+        assert spmv_k.ell_spmv.launches == before + 4
+        for k in SPMV_OUTPUTS:
+            assert torch.equal(replays[0][k], want[k]), (i, k)
+            assert torch.equal(replays[1][k], replays[0][k]), (i, k)
+        runs.append(run)
+    for run in runs:
+        run.release()
+
+
+def test_graph_replay_copies_another_input_in(small_spmv):
+    """A later call with another x of the same shape multiplies it; one of
+    another shape raises."""
+    import repro_torch.core as C
+    from repro_torch.core.executor import build_runner, jit_runner
+    A, x, spmv = small_spmv
+    g = C.spmv_dag()
+    sched = next(iter(C.enumerate_schedules(g, 2)))
+    run = jit_runner(g, sched, spmv.impls(), "cuda")
+    run(spmv.env())
+    x2 = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        x.size).astype(np.float32)).cuda()
+    got = _outputs(run({"x": x2}))
+    want = _outputs(build_runner(g, sched, spmv.impls(), "cuda")(
+        spmv.env()))
+    spmv.x.copy_(torch.from_numpy(x))
+    for k in SPMV_OUTPUTS:
+        assert torch.equal(got[k], want[k]), k
+    ref = A.matvec(x2.cpu().numpy())
+    y = (got["yL"] + got["yR"]).cpu().numpy()
+    assert np.abs(y - ref).max() / np.abs(ref).max() < 1e-4
+    with pytest.raises(ValueError):
+        run({"x": x2[:100]})
+    run.release()
+
+
+def test_a_host_sync_in_an_op_fails_the_capture(small_spmv):
+    """An op that blocks the host cannot be captured: jit_runner raises
+    and runs nothing in its place; the card runs the intact schedule
+    (eager and captured) afterwards."""
+    import repro_torch.core as C
+    from repro_torch.core.executor import build_runner, jit_runner
+    _, _, spmv = small_spmv
+    g = C.spmv_dag()
+    sched = next(iter(C.enumerate_schedules(g, 2)))
+    impls = spmv.impls()
+    local = impls["yL"]
+
+    def syncing(env):
+        out = local(env)
+        torch.cuda.current_stream().synchronize()
+        return out
+
+    impls["yL"] = syncing
+    with pytest.raises(RuntimeError):
+        jit_runner(g, sched, impls, "cuda")(spmv.env())
+    spmv.poison()
+    want = _outputs(build_runner(g, sched, spmv.impls(), "cuda")(
+        spmv.env()))
+    _hold_to_plain(spmv, want)
+    run = jit_runner(g, sched, spmv.impls(), "cuda")
+    run(spmv.env())
+    spmv.poison()
+    got = _outputs(run(spmv.env()))
+    for k in SPMV_OUTPUTS:
+        assert torch.equal(got[k], want[k]), k
+    run.release()
+
+
+def test_graph_objective_on_card(small_spmv, dev):
+    """ExecutorEvaluator(cuda_graph=True) gates and times 12 schedules;
+    its key names the graph objective."""
+    import repro_torch.core as C
+    from repro_torch.engine import ExecutorEvaluator
+    _, _, spmv = small_spmv
+    g = C.spmv_dag()
+    ev = ExecutorEvaluator(g, impls=spmv.impls(), env=spmv.env(),
+                           reset=spmv.poison, repeats=3, device=dev,
+                           store_tag=spmv.store_tag, cuda_graph=True)
+    times = ev.evaluate(list(C.enumerate_schedules(g, 2))[:12])
+    assert ev.n_checked == 12 and min(times) > 0
+    assert ":graph:" in ev.objective_key()
+    ref = ev.reference_outputs()
+    _hold_to_plain(spmv, {k: torch.from_numpy(ref[k]).to(dev)
+                          for k in SPMV_OUTPUTS})
+
+
+def test_distributed_spmv_replay_is_the_step(small_spmv):
+    """make_distributed_spmv's run(x) (the graph) and run.replay() give
+    the eager run.step()'s y bit for bit, for both orderings."""
+    from repro_torch.spmv.distributed import make_distributed_spmv
+    A, x, _ = small_spmv
+    for ol in (True, False):
+        run = make_distributed_spmv(partition(A, 4), "cuda",
+                                    overlap_local=ol)
+        y = run(x)
+        for env in (run.step(), run.replay()):
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(
+                (env["yL"] + env["yR"]).cpu().numpy(), y)
+        _hold_to_plain(run.spmv, _outputs(run.replay()))
+
+
+def test_removed_syncs_through_the_graph_are_reported(small_spmv, dev):
+    """chip_smoke.py's race phase through jit_runner: the intact schedules
+    pass the gate as graphs (else the phase raises), and whether each
+    race showed is reported, not asserted."""
+    if REPO_ROOT not in sys.path:
+        sys.path.insert(0, REPO_ROOT)
+    import chip_smoke
+    _, _, spmv = small_spmv
+    checks = chip_smoke.phase_race(spmv, dev)["graph_checks"]
+    assert [c["dropped"] for c in checks] == ["CES-b4-PostSend",
+                                             "CSWE-b4-C"]
+    print("graph races:", checks)
+
+
 def _driver_on_card(spmv, dev, sinks, budget, sim_budget):
     import repro_torch.core as C
     from repro_torch import obs
