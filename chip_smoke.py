@@ -222,6 +222,20 @@ Phases, each printing one JSON line:
                compute term over that time reported); then compressed_psum_mean over
                that group on one layer's gradients, bit for bit the
                CPU's (two rounds: the residual carried)
+  shard        the distributed SpMV with one process per rank
+               (spmv/distributed.py:make_rank_spmv, the JAX package's
+               spmv_shard under shard_map): R = min(4, cards) children
+               (``chip_smoke.py --shard RANK R PORT``), each on its own
+               card in an NCCL group, on its rank's part of the paper's
+               matrix in the four cases; each case's y within 1e-4 of max
+               |y| of the float64 oracle and bit for bit the one-process
+               make_distributed_spmv's at the same R, ell_spmv launched
+               with the kernels and nothing without, the two orderings
+               with the kernels bit-equal; each step timed per rank by
+               measure_cuda over a fixed count of steps (every rank makes
+               the same number of exchanges), in turns. On one card R = 1
+               and the exchange is the identity (a copy): the exchange
+               between cards is checked only where there are two or more
 
 Then the card's ``name, power.limit``, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -369,6 +383,10 @@ GRAPH_TRACE_TIMEOUT_S = 300
 # The graph phase's windowed sweeps: replays back to back for 5 ms, the
 # median of 3 such windows a schedule (two sweeps of 280: ~20 s).
 GRAPH_WINDOWED = {"t_measure_s": 0.005, "repeats": 3}
+# The shard phase: at most 4 ranks (the paper's band, half-width n/4,
+# must lie within one neighbour's block), one card each; a window is a
+# fixed count of steps, so that every rank makes as many exchanges.
+SHARD = {"max_ranks": 4, "samples": 200, "timeout_s": 300}
 
 
 
@@ -2670,6 +2688,211 @@ def phase_distributed(A, parts, x, dev) -> dict:
             "ok": True}
 
 
+def issue_and_drain(fn, dev, samples: int) -> dict:
+    """``fn`` run ``samples`` times back to back from a drained card: µs
+    a run until the host has issued them all (``issue_us``) and until
+    the card has finished them (``us``). Where the two are close the
+    host's issue bounds the run."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(samples):
+        fn()
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    done = time.perf_counter() - t0
+    return {"issue_us": issued / samples * 1e6, "us": done / samples * 1e6}
+
+
+def shard_rank(rank: int, world: int, port: int, n: int = PAPER_N,
+               nnz: int = PAPER_NNZ) -> dict:
+    """The child ``--shard RANK WORLD PORT [N NNZ]``: one rank of the
+    distributed SpMV, on card ``rank`` in an NCCL group of ``world``.
+    make_rank_spmv on its part of band_matrix(n, nnz, seed=0) in the
+    four cases (overlap_local x use_kernel), each held to the float64
+    oracle and to the one-process make_distributed_spmv at the same R,
+    its launches counted over its first run, and its step timed."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.bench import measure_cuda
+    from repro_torch.spmv.distributed import (AXIS, halo_exchange,
+                                              make_distributed_spmv,
+                                              make_rank_spmv, rank_device)
+    from repro_torch.spmv.matrix import band_matrix, partition
+
+    t_phase = time.perf_counter()
+    rank_device(world)
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=(AXIS,))
+        A = band_matrix(n=n, nnz=nnz, seed=0)
+        parts = partition(A, world)
+        x = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+        m = n // world
+        rows = slice(rank * m, (rank + 1) * m)
+        oracle = A.matvec(x)
+        scale = float(np.abs(oracle).max())
+        one_process = {
+            uk: make_distributed_spmv(parts, dev, use_kernel=uk)(x)[rows]
+            for uk in (True, False)}
+        torch.cuda.empty_cache()
+        setup_s = time.perf_counter() - t_phase
+
+        counters = kernel_counters()
+        cases, runs, ys = [], [], {}
+        for overlap_local in (True, False):
+            for use_kernel in (True, False):
+                name = (f"overlap_local={overlap_local},"
+                        f"use_kernel={use_kernel}")
+                run = make_rank_spmv(parts[rank], mesh,
+                                     use_kernel=use_kernel,
+                                     overlap_local=overlap_local)
+                for c in counters.values():
+                    c.launches = 0
+                y = run(x[rows])
+                launched = {k: c.launches for k, c in counters.items()
+                            if c.launches}
+                rel = float(np.abs(y - oracle[rows]).max() / scale)
+                if not (np.isfinite(y).all() and rel <= 1e-4):
+                    raise AssertionError(f"shard rank {rank} {name}: rel "
+                                         f"err {rel} > 1e-4")
+                if set(launched) != ({"ell_spmv"} if use_kernel else set()):
+                    raise AssertionError(f"shard rank {rank} {name}: "
+                                         f"launched {launched}")
+                if not np.array_equal(y, one_process[use_kernel]):
+                    raise AssertionError(
+                        f"shard rank {rank} {name}: y is not the "
+                        "one-process make_distributed_spmv's")
+                ys[overlap_local, use_kernel] = y
+                runs.append(run)
+                cases.append({"overlap_local": overlap_local,
+                              "use_kernel": use_kernel, "rel_err": rel,
+                              "launches": launched,
+                              "equals_one_process": True, "us_windows": []})
+        if not np.array_equal(ys[True, True], ys[False, True]):
+            raise AssertionError(f"shard rank {rank}: the two orderings "
+                                 "with the kernels give different y")
+        turns = list(range(len(cases)))
+        for _ in range(3):
+            for i in turns + turns[::-1]:
+                cases[i]["us_windows"].append(measure_cuda(
+                    runs[i].step, dev, t_measure_s=0.0,
+                    min_samples=SHARD["samples"]) * 1e6)
+        for case, run in zip(cases, runs):
+            case["us"] = statistics.median(case["us_windows"])
+            case["breakdown"] = issue_and_drain(run.step, dev,
+                                                SHARD["samples"])
+        # The exchange alone, on buffers of its own.
+        block = torch.zeros(m, dtype=torch.float32, device=dev)
+        halo = torch.empty(2 * m, dtype=torch.float32, device=dev)
+
+        def exchange() -> None:
+            for work in halo_exchange(block, runs[0].group, out=halo)[1]:
+                work.wait()
+
+        exchange_times = issue_and_drain(exchange, dev, SHARD["samples"])
+        kernel_vs_plain = {
+            f"overlap_local={ol}": float(
+                np.abs(ys[ol, True] - ys[ol, False]).max() / scale)
+            for ol in (True, False)}
+        return {"rank": rank, "world": world, "n": n, "nnz": nnz, "m": m,
+                "device": torch.cuda.get_device_name(dev),
+                "backend": dist.get_backend(runs[0].group),
+                "cases": cases, "kernel_orderings_bit_equal": True,
+                "kernel_vs_plain_rel": kernel_vs_plain,
+                "exchange": exchange_times,
+                "samples_per_window": SHARD["samples"],
+                "setup_s": setup_s,
+                "wall_s": time.perf_counter() - t_phase}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_shard() -> dict:
+    """R = min(SHARD["max_ranks"], cards) children of shard_rank, one a
+    card, started together; a child that fails (or outlives the phase's
+    time) fails the phase, and every child is stopped. One line: each
+    case's rel err (the worst rank), its launches summed over the ranks,
+    each rank's median step µs and the slowest rank's."""
+    import tempfile
+
+    cards = torch.cuda.device_count()
+    world = min(SHARD["max_ranks"], cards)
+    port = free_port()
+    t0 = time.perf_counter()
+    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+            for _ in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard", str(r),
+         str(world), str(port)], stdout=out, stderr=err, text=True,
+        cwd=ROOT) for r, (out, err) in enumerate(logs)]
+    try:
+        deadline = time.monotonic() + SHARD["timeout_s"]
+        while any(p.poll() is None for p in procs) and not any(
+                p.returncode for p in procs):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"shard: ranks still running after "
+                                     f"{SHARD['timeout_s']} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    results = []
+    for r, (p, (out, err)) in enumerate(zip(procs, logs)):
+        out.seek(0)
+        err.seek(0)
+        text, errors = out.read(), err.read()
+        out.close()
+        err.close()
+        if p.returncode != 0:
+            raise AssertionError(f"shard rank {r}: exit {p.returncode}\n"
+                                 f"{errors[-6000:]}")
+        results.append(json.loads(text.strip().splitlines()[-1]))
+    cases = []
+    for i, case in enumerate(results[0]["cases"]):
+        per_rank = [res["cases"][i] for res in results]
+        cases.append({
+            "overlap_local": case["overlap_local"],
+            "use_kernel": case["use_kernel"],
+            "rel_err": max(c["rel_err"] for c in per_rank),
+            "launches": {k: sum(c["launches"].get(k, 0) for c in per_rank)
+                         for k in case["launches"]},
+            "equals_one_process": all(c["equals_one_process"]
+                                      for c in per_rank),
+            "us_by_rank": [c["us"] for c in per_rank],
+            "us_slowest": max(c["us"] for c in per_rank),
+            "breakdown_by_rank": [c["breakdown"] for c in per_rank]})
+    return {"ranks": world, "cards": cards, "backend": results[0]["backend"],
+            **({"exchange": "identity (one card)"} if world == 1 else {}),
+            "n": results[0]["n"], "nnz": results[0]["nnz"],
+            "m": results[0]["m"], "cases": cases,
+            "kernel_orderings_bit_equal": all(
+                res["kernel_orderings_bit_equal"] for res in results),
+            "kernel_vs_plain_rel": [res["kernel_vs_plain_rel"]
+                                    for res in results],
+            "exchange_by_rank": [res["exchange"] for res in results],
+            "samples_per_window": SHARD["samples"],
+            "launches": {"ell_spmv": sum(c["launches"].get("ell_spmv", 0)
+                                         for c in cases)},
+            "setup_s": [res["setup_s"] for res in results],
+            "rank_wall_s": [res["wall_s"] for res in results],
+            "wall_s": time.perf_counter() - t0, "ok": True}
+
+
+def shard_main(args: list[str]) -> int:
+    """The child of phase_shard: one rank, its result as one JSON line."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps(shard_rank(*map(int, args))), flush=True)
+    return 0
+
+
 def phase_demo(dev) -> dict:
     """demo_spmv_impls (16 x 16 dense products) through the wallclock
     evaluator on the card over every schedule of spmv_dag() at 2
@@ -3531,6 +3754,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_families = phase_train_families()
     phase_dist()
+    shard = phase_shard()
+    emit("shard", **shard)
     launches = {**main_path["launches"], **onehot_path["launches"],
                 **serve["launches"]}
 
@@ -3545,7 +3770,8 @@ def main() -> int:
                "train": {k: n for k, n in train["launches"].items() if n},
                "train_families": {"flash_attention": sum(
                    f["launches"]["flash_attention"]
-                   for f in train_families.values() if "launches" in f)}}
+                   for f in train_families.values() if "launches" in f)},
+               "shard": shard["launches"]}
 
     def entry(name, source, replaces, calls, path, summed=(), **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -3627,6 +3853,8 @@ if __name__ == "__main__":
         sys.exit(family_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--dist":
         sys.exit(dist_main(sys.argv[2]))
+    if len(sys.argv) in (5, 7) and sys.argv[1] == "--shard":
+        sys.exit(shard_main(sys.argv[2:]))
     if len(sys.argv) == 3 and sys.argv[1] == "--train-family":
         sys.exit(train_family_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--graph-trace":

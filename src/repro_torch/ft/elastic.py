@@ -16,6 +16,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch.device import resolve_device
 from repro_torch.dist import sharding as shd
 
 
@@ -36,13 +37,15 @@ def remesh_state(state, axes_tree, new_mesh: DeviceMesh,
 
 
 def degraded_mesh(mesh_or_ranks, axis_names: tuple[str, ...], lost: int,
-                  device_type: str = "cpu") -> DeviceMesh:
+                  device_type: str | None = None) -> DeviceMesh:
     """Largest rectangular mesh after losing ``lost`` devices.
 
     Shrinks the leading (data) axis, the standard recovery shape,
     keeps the trailing axes' extents and drops the remainder devices.
     ``mesh_or_ranks`` is a DeviceMesh or an array of ranks in the old
-    mesh's shape.
+    mesh's shape. The new mesh is on ``device_type``: by default the old
+    DeviceMesh's, and the cards where only ranks are given (raises
+    without a card).
     """
     ranks = torch.as_tensor(mesh_or_ranks.mesh
                             if isinstance(mesh_or_ranks, DeviceMesh)
@@ -54,4 +57,8 @@ def degraded_mesh(mesh_or_ranks, axis_names: tuple[str, ...], lost: int,
     if lead < 1:
         raise ValueError("not enough devices left for the mesh")
     keep = ranks.reshape(-1)[:lead * rest].reshape(lead, *ranks.shape[1:])
-    return DeviceMesh(device_type, keep, mesh_dim_names=axis_names)
+    if device_type is None:
+        device_type = mesh_or_ranks.device_type if isinstance(
+            mesh_or_ranks, DeviceMesh) else "cuda"
+    return DeviceMesh(resolve_device(device_type).type, keep,
+                      mesh_dim_names=axis_names)

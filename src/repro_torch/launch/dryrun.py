@@ -62,8 +62,8 @@ def fake_mesh(multi_pod: bool, shape: tuple | None = None):
     if not dist.is_initialized():
         init_fake_group(size)
     if shape is not None:
-        return make_local_mesh(*shape)
-    return make_production_mesh(multi_pod=multi_pod)
+        return make_local_mesh(*shape, device_type="cpu")
+    return make_production_mesh(multi_pod=multi_pod, device_type="cpu")
 
 
 def quiet() -> None:

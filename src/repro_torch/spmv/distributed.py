@@ -36,6 +36,18 @@ they sort differently. Every buffer is allocated once here, so no op
 allocates memory that crosses streams, and none of them synchronises
 beyond what its vertex means: ordering comes from the schedule's sync
 items alone.
+
+The JAX package's own form is one body per rank under ``shard_map``
+(``spmv_shard`` over the mesh axis :data:`AXIS`), and so is this
+module's second one, the MPI program the paper studies: one process per
+rank, each with its own device, over a ``torch.distributed`` group.
+:func:`halo_exchange` is the reference's ``_halo_exchange`` (two
+``ppermute`` shifts) as one ``batch_isend_irecv``; :func:`spmv_shard`
+is the reference's body; :func:`make_rank_spmv` runs it on one rank's
+:class:`~repro_torch.spmv.matrix.RankPartition` in the sorted-slice
+layout, with its buffers allocated once. On NCCL a wait makes the
+current stream wait on the transfer and leaves the host free, so the
+local product issued before it can run while the halo is in flight.
 """
 from __future__ import annotations
 
@@ -45,6 +57,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.dag import (BoundOp, Graph, OpKind, Schedule,
                                   spmv_dag, validate_schedule)
@@ -55,9 +69,25 @@ from repro_torch.kernels.pack.ops import pack, pack_plain
 from repro_torch.kernels.spmv.kernel import SLICE_ROWS
 from repro_torch.kernels.spmv.ops import (BLOCK_N, WINDOW, SlicedEll,
                                           check_permutation, deal_blocks,
-                                          ell_spmv_plain, sliced_matvec,
-                                          sliced_operands)
-from repro_torch.spmv.matrix import RankPartition, stack_partitions
+                                          ell_matvec, ell_spmv_plain,
+                                          sliced_matvec, sliced_operands)
+from repro_torch.spmv.matrix import (EllMatrix, RankPartition,
+                                     stack_partitions)
+
+# The 1-D mesh dimension whose group carries the halo exchange.
+AXIS = "ranks"
+
+
+def _sliced_product(a: SlicedEll, x: torch.Tensor, out: torch.Tensor,
+                   use_kernel: bool = True) -> torch.Tensor:
+    """``out`` = ``a`` x ``x`` in the sorted-slice layout: the kernel on a
+    card, or with ``use_kernel=False`` its plain version on the same
+    device (the JAX package's ``ell_matvec_ref``); the plain version on
+    the CPU either way."""
+    if not use_kernel:
+        return out.copy_(ell_spmv_plain(a.vals_t, a.cols_t, x, a.slice_k,
+                                        a.perm))
+    return sliced_matvec(a, x, out)
 
 
 class DistributedSpmv:
@@ -161,18 +191,11 @@ class DistributedSpmv:
         self.wait(done)
         return halo
 
-    def _matvec(self, a: SlicedEll, x: torch.Tensor,
-                out: torch.Tensor) -> torch.Tensor:
-        if not self.use_kernel:
-            return out.copy_(ell_spmv_plain(a.vals_t, a.cols_t, x, a.slice_k,
-                                             a.perm))
-        return sliced_matvec(a, x, out)
-
     def multiply_local(self, x: torch.Tensor) -> torch.Tensor:
-        return self._matvec(self.local, x, self.yL)
+        return _sliced_product(self.local, x, self.yL, self.use_kernel)
 
     def multiply_remote(self, halo: torch.Tensor) -> torch.Tensor:
-        return self._matvec(self.remote, halo, self.yR)
+        return _sliced_product(self.remote, halo, self.yR, self.use_kernel)
 
     def impls(self) -> dict[str, OpImpl]:
         """Op implementations for the vertices of ``spmv_dag()``."""
@@ -286,4 +309,186 @@ def make_distributed_spmv(parts: list[RankPartition],
         return (env["yL"] + env["yR"]).cpu().numpy()
 
     run.spmv, run.step, run.replay = spmv, step, replay
+    return run
+
+
+# -- one process per rank ------------------------------------------------------
+
+def halo_exchange(x_block: torch.Tensor, group=None,
+                  out: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, list]:
+    """Start the exchange of this rank's ``x_block`` (m,) over ``group``
+    (the default group when None): the JAX package's ``_halo_exchange``.
+
+    Returns ``(halo, works)``. Once every work has been waited on, halo
+    (2m,) (``out`` when given) holds [the left neighbour's block, the
+    right neighbour's block], left as in the reference: its shift
+    i -> i+1 means rank j receives from j-1. Both shifts go in one
+    ``batch_isend_irecv``, each with a tag of its own, so that in a
+    world of two, where both neighbours are one peer, gloo (by tag) and
+    NCCL (by order in the batch) put each block in its slot. In a world
+    of one the halo is [x_block, x_block], copied (``ppermute`` over an
+    axis of one is the identity; torch refuses a send to self), and
+    there is nothing to wait on. The first point-to-point call of a group
+    must involve every rank of it.
+    """
+    m = x_block.numel()
+    halo = out if out is not None else torch.empty(
+        2 * m, dtype=x_block.dtype, device=x_block.device)
+    from_left, from_right = halo[:m], halo[m:]
+    n = dist.get_world_size(group)
+    if n == 1:
+        from_left.copy_(x_block)
+        from_right.copy_(x_block)
+        return halo, []
+    rank = dist.get_rank(group)
+    whole = dist.group.WORLD if group is None else group
+    left = dist.get_global_rank(whole, (rank - 1) % n)
+    right = dist.get_global_rank(whole, (rank + 1) % n)
+    return halo, dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x_block, right, group, tag=0),
+        dist.P2POp(dist.irecv, from_left, left, group, tag=0),
+        dist.P2POp(dist.isend, x_block, left, group, tag=1),
+        dist.P2POp(dist.irecv, from_right, right, group, tag=1)])
+
+
+def _wait(works: list) -> None:
+    """On NCCL the current stream waits on the transfer (the host does
+    not); on gloo the host waits."""
+    for work in works:
+        work.wait()
+
+
+def _ordered(exchange: Callable, multiply_local: Callable,
+             multiply_remote: Callable, overlap_local: bool
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step in one of the JAX package's two orderings: (yL, yR)."""
+    halo, works = exchange()
+    if overlap_local:
+        y_local = multiply_local()
+        _wait(works)
+        return y_local, multiply_remote(halo)
+    _wait(works)
+    y_remote = multiply_remote(halo)
+    return multiply_local(), y_remote
+
+
+def spmv_shard(local_vals: torch.Tensor, local_cols: torch.Tensor,
+               remote_vals: torch.Tensor, remote_cols: torch.Tensor,
+               x_block: torch.Tensor, *, use_kernel: bool = True,
+               overlap_local: bool = True, group=None) -> torch.Tensor:
+    """One rank's distributed SpMV step: the JAX package's per-shard body.
+
+    Row-major ELL operands (m, K): local columns index ``x_block`` (m,),
+    remote ones the halo (2m,). ``overlap_local``: start the exchange,
+    multiply the local part while it is in flight, then wait and multiply
+    the remote part; otherwise exchange, wait, remote, then local. The
+    products are :func:`~repro_torch.kernels.spmv.ops.ell_matvec` (the
+    kernel on a card), or with ``use_kernel=False`` its plain version on
+    the same device. ``group`` is the reference's ``axis``: None is the
+    default group. Returns y_block = yL + yR, float32 (m,).
+    """
+    def multiply(vals, cols, x):
+        if use_kernel:
+            return ell_matvec(vals, cols, x)
+        return ell_spmv_plain(vals.T, cols.T, x)
+
+    y_local, y_remote = _ordered(
+        lambda: halo_exchange(x_block, group),
+        lambda: multiply(local_vals, local_cols, x_block),
+        lambda halo: multiply(remote_vals, remote_cols, halo),
+        overlap_local)
+    return y_local + y_remote
+
+
+def rank_device(n_ranks: int, device: "str | torch.device | None" = None
+                ) -> torch.device:
+    """The device of one rank's process: a card unless the caller asks
+    for the CPU. Raises where CUDA is asked for and absent, and where a
+    group of ``n_ranks`` would need more cards than the machine has
+    (one card a rank: NCCL refuses two ranks on one device)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and n_ranks > torch.cuda.device_count():
+        raise RuntimeError(
+            f"a group of {n_ranks} ranks needs {n_ranks} cards, one a "
+            f"rank; this machine has {torch.cuda.device_count()}")
+    return dev
+
+
+def _rank_operands(part: EllMatrix, width: int,
+                   dev: torch.device) -> SlicedEll:
+    """One part of a rank's matrix in the sorted-slice layout on ``dev``;
+    its columns must index a vector of ``width``."""
+    if part.cols.size and (part.cols.min() < 0 or part.cols.max() >= width):
+        raise ValueError(f"column index outside [0, {width})")
+    return sliced_operands(
+        torch.from_numpy(np.ascontiguousarray(part.vals.T)).to(dev),
+        torch.from_numpy(np.ascontiguousarray(part.cols.T)).to(dev))
+
+
+def make_rank_spmv(part: RankPartition, mesh: DeviceMesh,
+                   device: "str | torch.device | None" = None, *,
+                   use_kernel: bool = True, overlap_local: bool = True
+                   ) -> Callable[[np.ndarray], np.ndarray]:
+    """``run(x_block) -> y_block`` for this process's rank of the
+    distributed SpMV: the JAX package's ``make_distributed_spmv`` as the
+    program of one rank.
+
+    ``mesh`` is 1-D over :data:`AXIS`, one process a rank
+    (``init_device_mesh(dev.type, (R,), mesh_dim_names=(AXIS,))``), and
+    ``part`` is this rank's :func:`~repro_torch.spmv.matrix.partition`
+    entry. The
+    device is this process's current card unless the caller asks for the
+    CPU; the mesh must be of its type and, on a card, over NCCL. Nothing
+    falls back: a group of more ranks than cards raises, and so does a
+    kernel that fails to build or launch. The operands are put on the
+    device once, in the sorted-slice layout, and the halo and outputs
+    allocated once; one exchange at set-up is the group's first
+    point-to-point call (every rank makes it; NCCL connects there).
+    ``run.step()`` is one step on the device's ``x`` without host copies
+    or a sync (what ``chip_smoke.py`` times); it returns y on the device.
+    """
+    n_ranks = mesh.size()
+    dev = rank_device(n_ranks, device)
+    if mesh.mesh_dim_names != (AXIS,):
+        raise ValueError(f"the mesh's dimensions are {mesh.mesh_dim_names}"
+                         f", not ({AXIS!r},)")
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device_type}, the data on "
+                         f"{dev.type}")
+    group = mesh.get_group(AXIS)
+    if dev.type == "cuda":
+        if dist.get_backend(group) != "nccl":
+            raise ValueError(f"a card's ranks exchange over NCCL, not "
+                             f"{dist.get_backend(group)}")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    rank = mesh.get_local_rank(AXIS)
+    if (part.rank, part.n_ranks) != (rank, n_ranks):
+        raise ValueError(f"rank {rank} of {n_ranks} was given the part of "
+                         f"rank {part.rank} of {part.n_ranks}")
+    m = part.m
+    local = _rank_operands(part.local, m, dev)
+    remote = _rank_operands(part.remote, 2 * m, dev)
+    x = torch.zeros(m, dtype=torch.float32, device=dev)
+    halo = torch.empty(2 * m, dtype=torch.float32, device=dev)
+    y_local, y_remote, y = (torch.empty(m, dtype=torch.float32, device=dev)
+                            for _ in range(3))
+
+    def step() -> torch.Tensor:
+        yl, yr = _ordered(
+            lambda: halo_exchange(x, group, out=halo),
+            lambda: _sliced_product(local, x, y_local, use_kernel),
+            lambda h: _sliced_product(remote, h, y_remote, use_kernel),
+            overlap_local)
+        return torch.add(yl, yr, out=y)
+
+    _wait(halo_exchange(x, group, out=halo)[1])
+
+    def run(x_block: np.ndarray) -> np.ndarray:
+        x.copy_(torch.from_numpy(
+            np.asarray(x_block, dtype=np.float32).reshape(-1)))
+        return step().cpu().numpy()
+
+    run.step, run.group = step, group
     return run

@@ -1031,3 +1031,52 @@ def test_one_by_one_mesh_train_step_equals_make_train_step(
 
 def test_compressed_psum_mean_on_nccl_equals_the_cpu(dist_card_reduced):
     assert dist_card_reduced["compress"]["bit_equal_to_cpu"]
+
+
+# -- the distributed SpMV with one process per rank ------------------------------
+
+SHARD_SIZE = ("4096", "40960")
+
+
+def _shard_child(world: int):
+    """chip_smoke.py's shard child as rank 0 of ``world`` at a small
+    size (band_matrix(4096, 40960), half-width 1,024), in a process of
+    its own (it makes an NCCL default group)."""
+    import subprocess
+
+    from chip_smoke import free_port
+
+    return subprocess.run(
+        [sys.executable, str(Path(REPO_ROOT) / "chip_smoke.py"), "--shard",
+         "0", str(world), str(free_port()), *SHARD_SIZE],
+        capture_output=True, text=True, timeout=300, cwd=REPO_ROOT)
+
+
+def test_shard_child_one_rank_kernels_against_plain(dev):
+    """R = 1 on one card (the exchange is the identity): each case's y
+    within 1e-4 of max |y| of the float64 oracle and bit for bit the
+    one-process make_distributed_spmv's, ell_spmv launched twice a step
+    with the kernels and nothing without, the kernel cases within 1e-4
+    of the plain ones, the orderings with the kernels bit-equal."""
+    import json
+
+    out = _shard_child(1)
+    assert out.returncode == 0, out.stderr[-4000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert (res["world"], res["backend"], res["m"]) == (1, "nccl", 4096)
+    assert len(res["cases"]) == 4
+    for case in res["cases"]:
+        assert case["rel_err"] <= 1e-4 and case["equals_one_process"]
+        assert case["launches"] == ({"ell_spmv": 2} if case["use_kernel"]
+                                    else {})
+        assert case["us"] > 0
+    assert res["kernel_orderings_bit_equal"]
+    assert all(v <= 1e-4 for v in res["kernel_vs_plain_rel"].values())
+
+
+def test_shard_child_refuses_more_ranks_than_cards(dev):
+    """A group of one rank more than there are cards raises before any
+    group is made (NCCL refuses two ranks on one card)."""
+    out = _shard_child(torch.cuda.device_count() + 1)
+    assert out.returncode != 0
+    assert "cards, one a rank; this machine has" in out.stderr

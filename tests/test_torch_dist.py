@@ -265,6 +265,7 @@ def work(rank, world, store, out):
     new = degraded_mesh(mesh, ("data", "model"), lost=2)
     res["new_shape"] = list(new.mesh.shape)
     res["new_names"] = list(new.mesh_dim_names)
+    res["new_device_type"] = new.device_type
     out_state = remesh_state(state, axes, new)
     if rank < 6:
         res["remesh_equal"] = bool(torch.equal(out_state["w"].full_tensor(),
@@ -349,6 +350,34 @@ def test_remesh_state_keeps_values_exactly(gloo_ranks):
     # 16 rows over 3 data ranks do not divide: the rules engine
     # replicates the batch dimension instead of failing.
     assert all(r["local_rows"] == 16 for r in gloo_ranks[:6])
+
+
+def test_degraded_mesh_keeps_the_old_mesh_device_type(gloo_ranks):
+    assert all(r["new_device_type"] == "cpu" for r in gloo_ranks)
+
+
+@pytest.mark.parametrize("build", ["production", "production_multi_pod",
+                                   "local", "degraded"])
+def test_meshes_default_to_the_card(build, monkeypatch):
+    """As the reference builds its meshes on the default backend's
+    devices, a mesh built without a device type is on the cards: on a
+    machine without one it raises before any mesh (or group) exists,
+    and is never a CPU mesh."""
+    import torch
+
+    from repro_torch.ft.elastic import degraded_mesh
+    from repro_torch.launch.mesh import (make_local_mesh,
+                                         make_production_mesh)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = {"production": make_production_mesh,
+          "production_multi_pod": lambda: make_production_mesh(
+              multi_pod=True),
+          "local": lambda: make_local_mesh(1, 1),
+          "degraded": lambda: degraded_mesh(np.arange(8).reshape(4, 2),
+                                            ("data", "model"), lost=2)}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fn[build]()
 
 
 def test_degraded_mesh_refuses_an_empty_mesh():

@@ -49,7 +49,7 @@ def work(rank, world, store, out):
                                           serve_shardings)
     from repro_torch.train.step import (distribute_model, jit_train_step,
                                         make_train_step, place)
-    mesh = make_local_mesh(2, 4)
+    mesh = make_local_mesh(2, 4, device_type="cpu")
     SHAPES["mesh_train"] = ShapeCell("mesh_train", 32, 8, "train")
     SHAPES["mesh_decode"] = ShapeCell("mesh_decode", 32, 8, "decode")
     rng = np.random.default_rng(7)
@@ -244,7 +244,7 @@ def work(rank, world, store, out):
     from repro_torch.optim.adamw import AdamW
     from repro_torch.train.step import (jit_train_step, make_train_step,
                                         place)
-    mesh = make_local_mesh(2, 4)
+    mesh = make_local_mesh(2, 4, device_type="cpu")
     # 64 tokens: Mamba's two chunks of 32, RWKV's chunked form at 32.
     SHAPES["mesh_train"] = ShapeCell("mesh_train", 64, 8, "train")
     res = {}

@@ -24,9 +24,6 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 REF = REPO / "src" / "repro"
 PORT = REPO / "src" / "repro_torch"
 
-_ONE_CARD = ("not ported: the port's R ranks share one process and one "
-             "card (spmv/distributed.py); the multi-card SpMV waits for a "
-             "machine with more than one card (ROADMAP Queue 1)")
 _TILES = ("not ported: a Pallas tile constant of the TPU kernel; the CUDA "
           "kernels set their tiles in csrc/*.cu")
 _HLO = ("not ported: XLA's HLO text; the port counts FLOPs and collectives "
@@ -67,13 +64,12 @@ DIFFERENCES = {
     "models.params:abstract": (
         "not ported: LM.abstract_params gives the shapes without "
         "allocating"),
-    "spmv.distributed:AXIS": _ONE_CARD,
-    "spmv.distributed:spmv_shard": _ONE_CARD,
 }
 
 # Entries of DIFFERENCES since ported under their own name. Each stays
 # a case of the reverse check, which now holds it to the port.
-PORTED = ("core:jit_runner", "core.executor:jit_runner")
+PORTED = ("core:jit_runner", "core.executor:jit_runner",
+          "spmv.distributed:AXIS", "spmv.distributed:spmv_shard")
 
 _BLOCKS = (ast.If, ast.Try)
 
