@@ -36,6 +36,7 @@ from typing import Callable, Mapping, Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.dag import Graph, OpKind, Schedule
 from repro_torch.core.sync import ExpandedItem, expand
 from repro_torch.device import resolve_device
@@ -191,15 +192,20 @@ class GraphRunner:
     op's launch point. Each stream is forked from it at the start and
     joined back at the end. On the CPU each call runs the items in
     order, as :func:`run_items` does there.
+
+    The first call is the span ``executor.capture`` and :meth:`release`
+    the span ``executor.release``, each with ``attrs`` as attributes.
     """
 
     def __init__(self, graph: Graph, items: Sequence[ExpandedItem],
                  impls: Mapping[str, OpImpl],
-                 device: "str | torch.device | None" = None, pool=None):
+                 device: "str | torch.device | None" = None, pool=None,
+                 attrs: Mapping | None = None):
         self.device = resolve_device(device)
         self.items = list(items)
         self.impls = impls
         self.pool = pool
+        self.attrs = dict(attrs or {})
         self.cuda_graph: "torch.cuda.CUDAGraph | None" = None
         self._gpu = _gpu_ops(graph)
         self._inputs: dict | None = None
@@ -211,8 +217,9 @@ class GraphRunner:
 
     def __call__(self, env: Mapping) -> dict:
         if self._inputs is None:
-            out = (_run_in_order(self.items, self.impls, env)
-                   if self.device.type == "cpu" else self._capture(env))
+            with obs.span("executor.capture", **self.attrs):
+                out = (_run_in_order(self.items, self.impls, env)
+                       if self.device.type == "cpu" else self._capture(env))
             self._inputs = dict(env)
             return out
         self._stage(env)
@@ -272,15 +279,18 @@ class GraphRunner:
     def release(self) -> None:
         """Free the graph and the environment it wrote; the next call
         captures again."""
-        if self.cuda_graph is not None:
-            self.cuda_graph.reset()
-        self.cuda_graph, self._inputs, self._env = None, None, {}
+        with obs.span("executor.release", **self.attrs):
+            if self.cuda_graph is not None:
+                self.cuda_graph.reset()
+            self.cuda_graph, self._inputs, self._env = None, None, {}
 
 
 def jit_runner(graph: Graph, schedule: Schedule,
                impls: Mapping[str, OpImpl],
                device: "str | torch.device | None" = None,
-               pool=None) -> GraphRunner:
+               pool=None, attrs: Mapping | None = None) -> GraphRunner:
     """The expanded schedule as one CUDA graph (:class:`GraphRunner`):
-    the JAX package's ``jax.jit(build_runner(...))``."""
-    return GraphRunner(graph, expand(graph, schedule), impls, device, pool)
+    the JAX package's ``jax.jit(build_runner(...))``. ``attrs`` go on
+    its telemetry spans."""
+    return GraphRunner(graph, expand(graph, schedule), impls, device, pool,
+                       attrs)

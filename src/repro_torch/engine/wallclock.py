@@ -31,6 +31,16 @@ next one is captured (a pool lives while a graph captured into it
 does). Its objective key holds ``:graph``, so stores of the two
 objectives never mix.
 
+With a telemetry registry current (:mod:`repro_torch.obs`), each
+schedule's phases are spans under ``engine.measure``: ``executor.
+capture`` (its graph runner's first call) and ``executor.release`` (the
+previous schedule's graph let go), ``engine.gate`` (:meth:`~
+ExecutorEvaluator.check`, with ``engine.reference`` inside it where the
+reference outputs are computed) and ``engine.timing`` (:meth:`~
+ExecutorEvaluator.measure`), each with the schedule's ``design`` (a
+digest of its cache key); the counter ``engine.gate_bytes`` adds up the
+bytes each gated run copies to the host.
+
 The objective key names the platform (card and compute capability, or
 ``cpu``), the protocol and the kernels' build
 (:func:`repro_torch.kernels.build.source_hash`), so times from
@@ -42,6 +52,7 @@ the matrix it multiplies.
 """
 from __future__ import annotations
 
+import hashlib
 import statistics
 import time
 from typing import Callable, Mapping, Sequence
@@ -49,6 +60,7 @@ from typing import Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.bench import measure_cuda
 from repro_torch.core.dag import BoundOp, Graph, OpKind, Schedule
 from repro_torch.core.executor import (OpImpl, build_runner, host_wait,
@@ -180,24 +192,30 @@ class ExecutorEvaluator(EvaluatorBase):
         self._sync()
         env = run(self.env)
         self._sync()
-        return tensor_outputs(env, self.env)
+        out = tensor_outputs(env, self.env)
+        obs.counter("engine.gate_bytes").add(
+            sum(a.nbytes for a in out.values()))
+        return out
 
     def reference_outputs(self) -> dict[str, np.ndarray]:
         """Outputs of :func:`reference_schedule` (computed once)."""
         if self._reference is None:
-            self._reference = self._gated_run(build_runner(
-                self.graph, reference_schedule(self.graph), self.impls,
-                self.device))
+            with obs.span("engine.reference"):
+                self._reference = self._gated_run(build_runner(
+                    self.graph, reference_schedule(self.graph), self.impls,
+                    self.device))
         return self._reference
 
-    def check(self, run: Callable[[dict], dict], what: str) -> None:
+    def check(self, run: Callable[[dict], dict], what: str,
+              **attrs) -> None:
         """Raise ``AssertionError`` unless ``run`` reproduces the
-        reference outputs."""
-        ref = self.reference_outputs()
-        got = self._gated_run(run)
-        assert_outputs_close(
-            {k: got[k] for k in ref if k in got}, ref, rtol=RTOL,
-            context=f" under {what} — a sync failed to order two ops")
+        reference outputs (the span ``engine.gate``, with ``attrs``)."""
+        with obs.span("engine.gate", **attrs):
+            ref = self.reference_outputs()
+            got = self._gated_run(run)
+            assert_outputs_close(
+                {k: got[k] for k in ref if k in got}, ref, rtol=RTOL,
+                context=f" under {what} — a sync failed to order two ops")
         self.n_checked += 1
 
     def timed(self, run: Callable[[dict], dict]) -> float:
@@ -209,33 +227,39 @@ class ExecutorEvaluator(EvaluatorBase):
         self._sync()
         return time.perf_counter() - t0
 
-    def measure(self, run: Callable[[dict], dict]) -> list[float]:
+    def measure(self, run: Callable[[dict], dict],
+                **attrs) -> list[float]:
         """Seconds of each of ``repeats`` samples of ``run`` under the
         protocol, after ``warmup - 1`` untimed calls (the gated run is
-        the first)."""
-        for _ in range(self.warmup - 1):
-            self.timed(run)
-        if self.t_measure_s is None:
-            return [self.timed(run) for _ in range(self.repeats)]
-        return [measure_cuda(lambda: run(self.env), self.device,
-                             self.t_measure_s)
-                for _ in range(self.repeats)]
+        the first): the span ``engine.timing``, with ``attrs``."""
+        with obs.span("engine.timing", **attrs):
+            for _ in range(self.warmup - 1):
+                self.timed(run)
+            if self.t_measure_s is None:
+                return [self.timed(run) for _ in range(self.repeats)]
+            return [measure_cuda(lambda: run(self.env), self.device,
+                                 self.t_measure_s)
+                    for _ in range(self.repeats)]
 
     def _measure_batch(self, schedules: Sequence[Schedule],
                        encoded: np.ndarray | None = None) -> list[float]:
         out: list[float] = []
-        for sched in schedules:
+        if encoded is None or not obs.enabled():
+            encoded = [None] * len(schedules)
+        for sched, row in zip(schedules, encoded):
             what = f"schedule {[str(i) for i in sched.items]}"
+            tag = {} if row is None else {"design": hashlib.blake2b(
+                row.tobytes(), digest_size=8).hexdigest()}
             if not self.cuda_graph:
                 run = build_runner(self.graph, sched, self.impls,
                                    self.device)
-                self.check(run, what)
-                out.append(statistics.median(self.measure(run)))
+                self.check(run, what, **tag)
+                out.append(statistics.median(self.measure(run, **tag)))
                 continue
             if self._pool is None and self.device.type == "cuda":
                 self._pool = torch.cuda.graph_pool_handle()
             run = jit_runner(self.graph, sched, self.impls, self.device,
-                             pool=self._pool)
+                             pool=self._pool, attrs=tag)
             run(self.env)  # warm-up, capture, a first replay
             # A pool lives while a graph captured into it does, so the
             # last schedule's graph is released only now, once this one
@@ -243,8 +267,8 @@ class ExecutorEvaluator(EvaluatorBase):
             if self._held is not None:
                 self._held.release()
             self._held = run
-            self.check(run, f"{what} (CUDA graph)")
-            out.append(statistics.median(self.measure(run)))
+            self.check(run, f"{what} (CUDA graph)", **tag)
+            out.append(statistics.median(self.measure(run, **tag)))
         return out
 
 

@@ -22,6 +22,12 @@ ties. The reference's ``constrain`` calls stand where it puts them
 unasked: the router's logits and the expert one-hots on the experts
 axis (so the router's weight gradient is each model shard's experts'
 alone) and the combine's output in the residual's placement.
+
+With a telemetry registry current (:mod:`repro_torch.obs`) a forward
+counts its token choices (``moe.routed``), those past capacity
+(``moe.dropped``, added up on the device) and the capacity slots it
+offers (``moe.slots``, groups x E x C); a layer checkpoint's
+recomputation does not count again.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Shard
 
+from repro_torch import obs
 from repro_torch.dist.sharding import (constrain, contiguous_grad, current,
                                       run_local_sum, spec_entries, zeros)
 from repro_torch.models.config import ModelConfig, MoeConfig
@@ -96,6 +103,19 @@ def _positions(top_e: torch.Tensor, e: int, c: int):
     return pos, pos < c
 
 
+def _count(keep: torch.Tensor, e: int, c: int) -> None:
+    """The routing's counters, where telemetry is on and this is not a
+    checkpoint's recomputation (which runs inside the backward, in an
+    autograd graph task). On a mesh a process counts its own shard."""
+    if not obs.enabled() or torch._C._current_graph_task_id() != -1:
+        return
+    if isinstance(keep, DTensor):
+        keep = keep.to_local()
+    obs.counter("moe.routed").add(keep.numel())
+    obs.counter("moe.dropped").add((~keep).sum())
+    obs.counter("moe.slots").add(keep.shape[0] * e * c)
+
+
 def _moe_experts(p, xe: torch.Tensor, kind: str) -> torch.Tensor:
     """xe: (B, E, C, d) -> (B, E, C, d) through the per-expert MLPs: one
     batched product per stacked matrix, experts leading."""
@@ -119,6 +139,7 @@ def _dispatch_einsum(p, x: torch.Tensor, top_w, top_e, mc: MoeConfig,
     b, s, d = x.shape
     e, c = mc.n_experts, _capacity(s, mc, capacity)
     pos, keep = _positions(top_e, e, c)
+    _count(keep, e, c)
     # Sharded on the experts from the start, so that the dispatch and
     # combine tensors and their products are computed for the local
     # experts only (what XLA's propagation back from xe's constraint
@@ -142,6 +163,7 @@ def _dispatch_gather(p, x: torch.Tensor, top_w, top_e, mc: MoeConfig,
     b, s, d = x.shape
     e, c = mc.n_experts, _capacity(s, mc, capacity)
     pos, keep = _positions(top_e, e, c)
+    _count(keep, e, c)
     k = mc.top_k
     # Slot index within the group's (E*C) buffer; drops -> scratch slot
     # e*c, which takes several writes and is cut off.

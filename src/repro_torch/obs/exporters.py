@@ -4,7 +4,9 @@ Three formats, one contract — ``export(event: dict)`` per event plus a
 ``close()`` flush. Events are the Chrome trace-event shape the
 registry emits (:mod:`repro_torch.obs.telemetry`): ``ph`` is ``"B"``/``"E"``
 (span begin/end), ``"C"`` (counter/gauge sample), or ``"i"`` (instant);
-``ts`` is microseconds on the process-monotonic clock.
+``ts`` is microseconds on the process-monotonic clock from the
+registry's zero (``Telemetry.epoch_us`` is that zero's Unix time); a
+span's ``"B"`` and ``"E"`` carry its ``span_id`` and ``parent_id``.
 
 :class:`PerfettoExporter`
     Chrome trace-event JSON (``{"traceEvents": [...]}``) loadable

@@ -7,14 +7,35 @@ registry:
 * **Spans** — hierarchical begin/end intervals on the monotonic clock
   (``with obs.span("driver.round", round=i) as sp: ...``), nested via a
   thread-local stack, with arbitrary key/value attributes attached at
-  open time or later through :meth:`Span.set`. Finished spans stream to
-  every attached exporter (:mod:`repro_torch.obs.exporters`) and fold into a
-  per-name (count, total seconds) aggregate for :meth:`Telemetry.
-  summary`.
+  open time or later through :meth:`Span.set`. Each span has an id and
+  its parent's id (the span open around it on its thread), carried in
+  its begin and end events as ``span_id`` and ``parent_id``. Finished
+  spans stream to every attached exporter (:mod:`repro_torch.obs.
+  exporters`) and fold into a per-name aggregate (count, total and
+  self seconds, device seconds) for :meth:`Telemetry.spans_by_name`
+  and :meth:`Telemetry.summary`.
+* **Device intervals** — ``obs.span(name, device=dev)`` on a CUDA
+  device also records a CUDA event on the current stream at entry and
+  at exit: the interval in which the device reached the two, which
+  holds the device work issued inside the span. The events are read
+  when the registry is (:meth:`Telemetry.spans_by_name`), never inside
+  the span, so a device span adds no synchronisation to the code it
+  wraps.
 * **Counters / gauges** — typed named values (`counter("engine.misses")
   .add(n)`, ``gauge("driver.best").set(t)``); counter/gauge updates are
   also streamed as Chrome-trace ``"C"`` events so Perfetto renders them
-  as tracks under the span timeline.
+  as tracks under the span timeline. A counter also takes a tensor
+  (``counter("moe.dropped").add(mask.sum())``): it is added up where
+  the tensor lives and read once, when the counter is, so that no
+  ``.item()`` runs inside a step.
+
+**One clock.** Timestamps are offsets from the registry's zero, in
+microseconds; :attr:`Telemetry.epoch_us` is the Unix time of that zero,
+so ``ts + epoch_us`` is a Unix time in µs that lines up with another
+process's registry, and :meth:`Telemetry.trace_ts` puts ``ts`` on the
+clock of a ``torch.profiler`` Chrome trace (Unix µs less the trace's
+``baseTimeNanoseconds``), where a span encloses the host's calls and
+operators that ran inside it.
 
 **Telemetry is a pure observer.** Nothing in this module is ever read
 back by the instrumented code: timestamps never feed RNGs, cache keys,
@@ -22,8 +43,9 @@ or tie-breaks, so a search with an exporter attached is byte-identical
 to one without (tests/test_torch_obs.py). The *disabled* registry
 (the process default) reduces every instrumentation point to one
 attribute check plus a no-op singleton — well under 1% of a
-discrete-event simulation — so instrumented hot paths cost nothing
-until someone attaches a real :class:`Telemetry`.
+discrete-event simulation — and records no CUDA event and adds up no
+tensor, so instrumented hot paths cost nothing until someone attaches
+a real :class:`Telemetry`.
 
 Usage::
 
@@ -35,7 +57,9 @@ Usage::
     tel.close()                              # flush exporters
     print(tel.summary())                     # human table
 
-The JAX package's ``repro/obs/telemetry.py`` with its imports rewritten.
+The JAX package's ``repro/obs/telemetry.py`` with its imports
+rewritten, and the shared clock, span ids, self time, device intervals
+and tensor counters added.
 """
 from __future__ import annotations
 
@@ -50,18 +74,42 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
 
 
 class Counter:
-    """Monotonically increasing named value (events, bytes, hits)."""
+    """Monotonically increasing named value (events, bytes, hits).
 
-    __slots__ = ("name", "value", "_tel")
+    :meth:`add` takes a number or a tensor; a tensor is added up where
+    it lives (one small kernel on a card) and read into :attr:`value`
+    only when the value is read."""
+
+    __slots__ = ("name", "_value", "_pending", "_tel")
 
     def __init__(self, name: str, tel: "Telemetry"):
         self.name = name
-        self.value = 0.0
+        self._value = 0.0
+        self._pending = None     # the tensors' sum not yet read
         self._tel = tel
 
-    def add(self, n: float = 1.0) -> None:
-        self.value += n
-        self._tel._emit_value(self.name, self.value)
+    def add(self, n: "float | torch.Tensor" = 1.0) -> None:
+        if hasattr(n, "detach"):
+            import torch
+
+            n = n.detach()
+            with self._tel._lock:
+                if self._pending is None:
+                    self._pending = n.to(torch.float64, copy=True)
+                else:
+                    self._pending.add_(n)
+            return
+        self._value += n
+        self._tel._emit_value(self.name, self._value)
+
+    @property
+    def value(self) -> float:
+        with self._tel._lock:
+            pending, self._pending = self._pending, None
+        if pending is not None:
+            self._value += float(pending.item())
+            self._tel._emit_value(self.name, self._value)
+        return self._value
 
 
 class Gauge:
@@ -87,15 +135,25 @@ class Span:
     ``"E"`` event (attributes attached to the end event, where
     late-``set`` values are visible), and folds the wall into the
     registry's per-name aggregate. Exceptions propagate untouched.
+    ``id`` is unique in the registry, ``parent`` the id of the span
+    open around this one on its thread (None at the top). With a
+    CUDA ``device`` a timing event is recorded on its current stream
+    after the begin and before the end stamp.
     """
 
-    __slots__ = ("name", "attrs", "_tel", "_t0")
+    __slots__ = ("name", "attrs", "id", "parent", "_tel", "_t0",
+                 "_child_ns", "_device", "_events")
 
-    def __init__(self, name: str, tel: "Telemetry", attrs: dict):
+    def __init__(self, name: str, tel: "Telemetry", attrs: dict,
+                 device=None):
         self.name = name
         self.attrs = attrs
         self._tel = tel
         self._t0 = 0
+        self._child_ns = 0       # wall of the spans directly inside
+        self._device = device
+        self._events = None
+        self.id = self.parent = None
 
     def set(self, **attrs) -> None:
         """Attach attributes discovered mid-span (e.g. batch meters)."""
@@ -104,9 +162,19 @@ class Span:
     def __enter__(self) -> "Span":
         self._t0 = time.perf_counter_ns()
         self._tel._begin(self)
+        if self._device is not None:
+            import torch
+
+            begin = torch.cuda.Event(enable_timing=True)
+            begin.record(torch.cuda.current_stream(self._device))
+            self._events = (begin, torch.cuda.Event(enable_timing=True))
         return self
 
     def __exit__(self, *exc) -> None:
+        if self._events is not None:
+            import torch
+
+            self._events[1].record(torch.cuda.current_stream(self._device))
         self._tel._end(self, time.perf_counter_ns())
 
 
@@ -142,6 +210,16 @@ class _NullValue:
 _NULL_SPAN = _NullSpan()
 _NULL_VALUE = _NullValue()
 
+def _cuda_device(device):
+    """``device`` as a ``torch.device`` where it is a CUDA one, else
+    None (no device interval)."""
+    if device is None:
+        return None
+    import torch
+
+    dev = torch.device(device)
+    return dev if dev.type == "cuda" else None
+
 
 class Telemetry:
     """Process-wide registry: spans + counters + gauges + exporters.
@@ -154,9 +232,10 @@ class Telemetry:
     how tests and chip_smoke.py read it).
 
     Timestamps are ``time.perf_counter_ns`` offsets from registry
-    construction, exported in microseconds — monotone within a process,
-    meaningless across processes (worker pools report through their
-    parent's meters, never their own registry).
+    construction, exported in microseconds and monotone within a
+    process. :attr:`epoch_us` is the Unix time of that zero, read
+    beside it, so ``ts + epoch_us`` compares across processes and
+    :meth:`trace_ts` converts to a profiler trace's clock.
     """
 
     enabled = True
@@ -165,15 +244,27 @@ class Telemetry:
         self.exporters = list(exporters)
         self._counters: dict[str, Counter] = {}
         self._gauges: dict[str, Gauge] = {}
-        self._span_agg: dict[str, list] = {}     # name -> [count, total_s]
-        self._t0 = time.perf_counter_ns()
+        # name -> [count, total_s, self_s, device_s or None]
+        self._span_agg: dict[str, list] = {}
+        self._device_pending: list = []    # (name, begin, end) events
+        a = time.perf_counter_ns()
+        unix = time.time_ns()
+        b = time.perf_counter_ns()
+        self._t0 = (a + b) // 2
+        self.epoch_us = unix / 1e3
+        self._ids = 0
         self._pid = os.getpid()
         self._local = threading.local()
         self._lock = threading.Lock()
 
+    def trace_ts(self, ts_us: float, base_time_ns: int = 0) -> float:
+        """``ts_us`` of this registry on the clock of a Chrome trace
+        whose ``baseTimeNanoseconds`` is ``base_time_ns`` (0: Unix µs)."""
+        return ts_us + self.epoch_us - base_time_ns / 1e3
+
     # -- the instrumentation API ------------------------------------------
-    def span(self, name: str, **attrs) -> Span:
-        return Span(name, self, attrs)
+    def span(self, name: str, device=None, **attrs) -> Span:
+        return Span(name, self, attrs, _cuda_device(device))
 
     def counter(self, name: str) -> Counter:
         c = self._counters.get(name)
@@ -207,25 +298,50 @@ class Telemetry:
         return (t_ns - self._t0) / 1e3
 
     def _begin(self, span: Span) -> None:
-        self._stack().append(span)
+        st = self._stack()
+        with self._lock:
+            self._ids += 1
+            span.id = self._ids
+        span.parent = st[-1].id if st else None
+        st.append(span)
         self._export({"name": span.name, "ph": "B",
                       "ts": self._ts_us(span._t0), "pid": self._pid,
                       "tid": threading.get_ident() & 0xFFFFFFFF,
+                      "span_id": span.id, "parent_id": span.parent,
                       "args": dict(span.attrs)})
 
     def _end(self, span: Span, t1_ns: int) -> None:
         st = self._stack()
         if st and st[-1] is span:
             st.pop()
-        dur_s = (t1_ns - span._t0) / 1e9
+        dur_ns = t1_ns - span._t0
+        if st and st[-1].id == span.parent:
+            st[-1]._child_ns += dur_ns
         with self._lock:
-            agg = self._span_agg.setdefault(span.name, [0, 0.0])
+            agg = self._span_agg.setdefault(span.name,
+                                            [0, 0.0, 0.0, None])
             agg[0] += 1
-            agg[1] += dur_s
+            agg[1] += dur_ns / 1e9
+            agg[2] += (dur_ns - span._child_ns) / 1e9
+            if span._events is not None:
+                self._device_pending.append((span.name, *span._events))
         self._export({"name": span.name, "ph": "E",
                       "ts": self._ts_us(t1_ns), "pid": self._pid,
                       "tid": threading.get_ident() & 0xFFFFFFFF,
+                      "span_id": span.id, "parent_id": span.parent,
                       "args": dict(span.attrs)})
+
+    def _read_device(self) -> None:
+        """Fold the device intervals held into the aggregate, each once
+        the device has reached its end event."""
+        with self._lock:
+            pending, self._device_pending = self._device_pending, []
+        for name, begin, end in pending:
+            end.synchronize()
+            s = begin.elapsed_time(end) / 1e3
+            with self._lock:
+                agg = self._span_agg[name]
+                agg[3] = (agg[3] or 0.0) + s
 
     def _emit_value(self, name: str, value: float) -> None:
         self._export({"name": name, "ph": "C", "ts": self._ts_us(),
@@ -238,9 +354,15 @@ class Telemetry:
 
     # -- read-side ---------------------------------------------------------
     def spans_by_name(self) -> dict[str, dict]:
-        """Finished-span aggregate: name -> {count, total_s}."""
+        """Finished-span aggregate: name -> {count, total_s, self_s,
+        device_s}. ``self_s`` is the wall no span directly inside
+        covers; ``device_s`` sums the device intervals (None for a
+        name that recorded none), read here, after the device has
+        reached the end of each."""
+        self._read_device()
         with self._lock:
-            return {name: {"count": agg[0], "total_s": agg[1]}
+            return {name: {"count": agg[0], "total_s": agg[1],
+                           "self_s": agg[2], "device_s": agg[3]}
                     for name, agg in self._span_agg.items()}
 
     def counters(self) -> dict[str, float]:
@@ -293,7 +415,7 @@ class _DisabledTelemetry(Telemetry):
     def __init__(self):
         super().__init__()
 
-    def span(self, name: str, **attrs):
+    def span(self, name: str, device=None, **attrs):
         return _NULL_SPAN
 
     def counter(self, name: str):

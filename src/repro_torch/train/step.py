@@ -21,6 +21,11 @@ Mamba and chunked RWKV checkpoint their time loops a chunk at a time,
 and whisper's and internvl2's batches carry ``"frontend"``. With
 microbatches the metrics are the reference's: ``ce`` is the mean total
 loss (aux included), ``z_loss`` and ``aux`` are 0.
+
+With a telemetry registry current (:mod:`repro_torch.obs`) the step's
+parts are spans with device intervals on the model's device:
+``train.forward`` and ``train.backward`` once a microbatch,
+``train.optimizer`` once a step.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
+from repro_torch import obs
 from repro_torch.dist import sharding as shd
 from repro_torch.models.model import LM
 from repro_torch.optim.adamw import AdamW
@@ -101,11 +107,14 @@ def make_train_step(model: LM, opt: AdamW, microbatches: int = 1,
     mark = marks or (lambda _: None)
 
     def grad_fn(own: dict, batch: dict):
-        loss, metrics = model.loss(batch, attention="plain",
-                                   rwkv_chunk=rwkv_chunk)
+        with obs.span("train.forward", device=model.device):
+            loss, metrics = model.loss(batch, attention="plain",
+                                       rwkv_chunk=rwkv_chunk)
         mark("forward")
-        grads = torch.autograd.grad(loss, list(own.values()))
-        grads = [_placed_like(g, p) for g, p in zip(grads, own.values())]
+        with obs.span("train.backward", device=model.device):
+            grads = torch.autograd.grad(loss, list(own.values()))
+            grads = [_placed_like(g, p)
+                     for g, p in zip(grads, own.values())]
         mark("backward")
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             dict(zip(own, grads))
@@ -134,7 +143,8 @@ def make_train_step(model: LM, opt: AdamW, microbatches: int = 1,
                 mark("microbatch")
             zero = torch.zeros((), device=model.device)
             metrics = {"ce": loss, "z_loss": zero, "aux": zero}
-        opt.step(grads, opt_state, own)
+        with obs.span("train.optimizer", device=model.device):
+            opt.step(grads, opt_state, own)
         mark("optimizer")
         metrics = dict(metrics, loss=loss,
                        step=opt_state["count"].float())

@@ -196,3 +196,62 @@ def test_make_distributed_spmv_run_and_replay_give_the_step(problem,
                                   want)
     ref = A.matvec(x)
     assert np.abs(y - ref).max() / np.abs(ref).max() < 1e-5
+
+
+@pytest.mark.parametrize("cuda_graph", [False, True])
+def test_evaluator_phases_are_spans_of_each_design(cuda_graph):
+    """Under a registry each design measured is one ``engine.gate`` and
+    one ``engine.timing`` (and, compiled, one ``executor.capture``)
+    inside ``engine.measure``, each with the design's digest;
+    ``engine.reference`` runs once, inside the first gate; and
+    ``engine.gate_bytes`` is the bytes of every gated run's outputs."""
+    from repro_torch import obs
+
+    impls, env = demo_spmv_impls(G, device="cpu")
+    ev = ExecutorEvaluator(G, impls=impls, env=env, reset=lambda: None,
+                           repeats=2, warmup=2, device="cpu",
+                           cuda_graph=cuda_graph)
+    scheds = SCHEDULES[:5]
+    ex = obs.MemoryExporter()
+    tel = obs.Telemetry([ex])
+    with obs.use(tel):
+        ev.evaluate(scheds)
+        ev.close()
+    spans = tel.spans_by_name()
+    n = len(scheds)
+    assert spans["engine.gate"]["count"] == spans["engine.timing"][
+        "count"] == n
+    assert spans["engine.reference"]["count"] == 1
+    assert spans.get("executor.capture", {}).get("count", 0) == \
+        (n if cuda_graph else 0)
+    assert spans.get("executor.release", {}).get("count", 0) == \
+        (n if cuda_graph else 0)
+    out_bytes = sum(4 * 16 for _ in DEMO_OUTPUTS)
+    assert tel.counters()["engine.gate_bytes"] == (n + 1) * out_bytes
+    begins = [e for e in ex.events if e["ph"] == "B"]
+    measure = [e for e in begins if e["name"] == "engine.measure"]
+    assert len(measure) == 1
+    parent = {e["span_id"]: e for e in begins}
+    designs = {}
+    for e in begins:
+        if e["name"] in ("engine.gate", "engine.timing", "executor.capture"):
+            assert parent[e["parent_id"]]["name"] == "engine.measure"
+            designs.setdefault(e["args"]["design"], []).append(e["name"])
+        if e["name"] == "engine.reference":
+            assert parent[e["parent_id"]]["name"] == "engine.gate"
+    assert len(designs) == n
+    phases = ["engine.gate", "engine.timing"]
+    if cuda_graph:
+        phases = ["executor.capture"] + phases
+    assert all(got == phases for got in designs.values())
+    # The measure's self time is its wall less its children's: the
+    # phases and the releases of earlier designs' graphs (the last goes
+    # at close, outside).
+    ts = {(e["span_id"], e["ph"]): e["ts"] for e in ex.events
+          if e["ph"] in "BE"}
+    children = [e["span_id"] for e in begins
+                if e["parent_id"] == measure[0]["span_id"]]
+    assert len(children) == len(phases) * n + (n - 1 if cuda_graph else 0)
+    inside_us = sum(ts[i, "E"] - ts[i, "B"] for i in children)
+    assert spans["engine.measure"]["self_s"] == pytest.approx(
+        spans["engine.measure"]["total_s"] - inside_us / 1e6, abs=1e-5)

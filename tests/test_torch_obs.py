@@ -328,3 +328,151 @@ def test_load_trace_reads_the_jsonl_its_exporter_writes(tmp_path):
     one = tmp_path / "one.jsonl"
     one.write_text(json.dumps(events[0]) + "\n")
     assert obs.load_trace(one) == [events[0]]
+
+
+# -- the shared clock, span ids, device intervals and tensor counters --------
+
+def test_span_ids_parents_and_self_time():
+    """Each span's B and E carry its id and its parent's (the span open
+    around it on its thread); self time is the wall no child covers."""
+    ex = obs.MemoryExporter()
+    tel = obs.Telemetry([ex])
+    with obs.use(tel):
+        with obs.span("outer") as outer:
+            with obs.span("inner") as first:
+                with obs.span("leaf") as leaf:
+                    pass
+            with obs.span("inner") as second:
+                pass
+        with obs.span("next") as nxt:
+            pass
+    assert len({outer.id, first.id, leaf.id, second.id, nxt.id}) == 5
+    assert (outer.parent, nxt.parent) == (None, None)
+    assert first.parent == second.parent == outer.id
+    assert leaf.parent == first.id
+    for e in ex.events:
+        span = {outer.id: "outer", first.id: "inner", second.id: "inner",
+                leaf.id: "leaf", nxt.id: "next"}[e["span_id"]]
+        assert e["name"] == span
+    by_id = {e["span_id"]: e["parent_id"] for e in ex.events}
+    assert by_id[leaf.id] == first.id and by_id[outer.id] is None
+    spans = tel.spans_by_name()
+    inner_total = spans["inner"]["total_s"]
+    assert spans["outer"]["self_s"] == pytest.approx(
+        spans["outer"]["total_s"] - inner_total, abs=1e-9)
+    assert spans["inner"]["self_s"] == pytest.approx(
+        inner_total - spans["leaf"]["total_s"], abs=1e-9)
+    assert spans["leaf"]["self_s"] == spans["leaf"]["total_s"]
+    assert all(s["device_s"] is None for s in spans.values())
+
+
+class _FakeEvent:
+    """A stand-in for ``torch.cuda.Event`` on the CPU: the device
+    reaches it ``ms`` after the previous record."""
+
+    made = 0
+    waits = 0
+    clock = 0.0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        type(self).made += 1
+        self.at = None
+
+    def record(self, stream=None):
+        _FakeEvent.clock += 2.5
+        self.at = _FakeEvent.clock
+
+    def synchronize(self):
+        type(self).waits += 1
+
+    def elapsed_time(self, end):
+        return end.at - self.at
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: None)
+    _FakeEvent.made = _FakeEvent.waits = 0
+    _FakeEvent.clock = 0.0
+    return _FakeEvent
+
+
+def test_device_intervals_are_read_with_the_registry(fake_cuda):
+    """A span on a CUDA device records an event at entry and at exit
+    and waits for neither inside the step; ``device_s`` sums their
+    intervals when the registry is read. The disabled registry, and a
+    span on the CPU, make no event."""
+    with obs.span("step", device="cuda:0"):
+        pass
+    assert fake_cuda.made == 0
+    tel = obs.Telemetry()
+    with obs.use(tel):
+        for _ in range(3):
+            with obs.span("step", device=torch.device("cuda")):
+                with obs.span("host"):
+                    pass
+        with obs.span("cpu", device="cpu"):
+            pass
+    assert fake_cuda.made == 6 and fake_cuda.waits == 0
+    spans = tel.spans_by_name()
+    assert fake_cuda.waits == 3
+    assert spans["step"]["count"] == 3
+    assert spans["step"]["device_s"] == pytest.approx(3 * 2.5e-3)
+    assert spans["host"]["device_s"] is None
+    assert spans["cpu"]["device_s"] is None
+    assert tel.spans_by_name()["step"]["device_s"] == pytest.approx(7.5e-3)
+
+
+def test_tensor_counter_is_added_up_and_read_once():
+    """A counter fed tensors equals the sum added, numbers and tensors
+    mixed; the tensors are read when the value is, and the disabled
+    registry does no tensor work."""
+    tel = obs.Telemetry([obs.MemoryExporter()])
+    adds = [torch.tensor(3), torch.tensor(4.5, dtype=torch.float64),
+            torch.tensor(True).sum(), torch.tensor(7, dtype=torch.int32)]
+    with obs.use(tel):
+        c = obs.counter("dropped")
+        c.add(2)
+        for t in adds:
+            c.add(t)
+        assert c._pending is not None
+        assert tel.counters() == {"dropped": 2 + 3 + 4.5 + 1 + 7}
+        assert c._pending is None
+        c.add(torch.tensor(1))
+    assert tel.counters()["dropped"] == 18.5
+    assert tel.exporters[0].events[-1]["args"] == {"value": 18.5}
+
+    class Untouchable:
+        def detach(self):
+            raise AssertionError("the disabled registry read a tensor")
+
+    obs.counter("dropped").add(Untouchable())
+
+
+def test_span_on_the_profiler_clock_encloses_its_operator(tmp_path):
+    """A span converted to a ``torch.profiler`` trace's clock (Unix µs
+    less the trace's ``baseTimeNanoseconds``) encloses the ``aten::``
+    operator run inside it, to within 100 µs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(192, 192)
+    ex = obs.MemoryExporter()
+    tel = obs.Telemetry([ex])
+    with profile(activities=[ProfilerActivity.CPU]) as prof, obs.use(tel):
+        for _ in range(3):
+            with obs.span("product"):
+                x @ x
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    doc = json.loads((tmp_path / "trace.json").read_text())
+    base = doc["baseTimeNanoseconds"]
+    ops = sorted((e["ts"], e["ts"] + e["dur"]) for e in doc["traceEvents"]
+                 if e.get("name") == "aten::mm" and "dur" in e)
+    begins = [tel.trace_ts(e["ts"], base) for e in ex.events
+              if e["ph"] == "B"]
+    ends = [tel.trace_ts(e["ts"], base) for e in ex.events
+            if e["ph"] == "E"]
+    assert len(ops) == len(begins) == 3
+    for (lo, hi), b, e in zip(ops, begins, ends):
+        assert b - 100.0 <= lo and hi <= e + 100.0, (b, lo, hi, e)

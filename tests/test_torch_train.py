@@ -325,3 +325,60 @@ def test_a_restored_state_is_loaded_into_the_module():
     with pytest.raises(ValueError, match="microbatches"):
         opt = adamw.AdamW()
         make_train_step(m, opt, 3)(own, opt.init(own), batch("smollm-360m")[1])
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("dispatch", ["einsum", "gather"])
+@pytest.mark.parametrize("remat", [True, False])
+def test_step_spans_and_moe_counters(monkeypatch, remat, dispatch,
+                                     microbatches):
+    """Under a registry a step is one ``train.forward`` and one
+    ``train.backward`` a microbatch and one ``train.optimizer``; the MoE
+    counters equal a direct count of ``_positions``' ``keep`` in the
+    same forward, once, though the layer checkpoint's recomputation
+    routes again; with the disabled registry nothing is counted."""
+    from repro_torch import obs
+    from repro_torch.models import moe
+
+    base = get_reduced("deepseek-moe-16b")
+    cfg = dataclasses.replace(
+        base, dtype="float32", remat=remat,
+        moe=dataclasses.replace(base.moe, capacity_factor=1.0,
+                                dispatch=dispatch))
+    m = LM(cfg, device="cpu", seed=0)
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (4, 32), generator=g)
+    tb = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    keeps = []
+    positions = moe._positions
+
+    def spy(top_e, e, c):
+        pos, keep = positions(top_e, e, c)
+        keeps.append((keep.clone(), e, c))
+        return pos, keep
+
+    def untouched(name):
+        raise AssertionError("the disabled registry counted " + name)
+
+    monkeypatch.setattr(moe, "_positions", spy)
+    with torch.no_grad(), monkeypatch.context() as mp:
+        mp.setattr(obs, "counter", untouched)
+        m.loss(tb, attention="plain")
+    want = {"moe.routed": sum(k.numel() for k, _, _ in keeps),
+            "moe.dropped": sum(int((~k).sum()) for k, _, _ in keeps),
+            "moe.slots": sum(k.shape[0] * e * c for k, e, c in keeps)}
+    assert len(keeps) == cfg.n_layers and want["moe.dropped"] > 0
+    keeps.clear()
+    opt = adamw.AdamW(learning_rate=1e-3)
+    p = dict(m.named_parameters())
+    tel = obs.Telemetry()
+    with obs.use(tel):
+        make_train_step(m, opt, microbatches)(p, opt.init(p), tb)
+    # With remat the checkpoint routes each layer again in the backward.
+    assert len(keeps) == cfg.n_layers * microbatches * (2 if remat else 1)
+    assert tel.counters() == want
+    spans = tel.spans_by_name()
+    assert {k: v["count"] for k, v in spans.items()} == {
+        "train.forward": microbatches, "train.backward": microbatches,
+        "train.optimizer": 1}
+    assert all(v["device_s"] is None for v in spans.values())
