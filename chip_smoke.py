@@ -203,6 +203,15 @@ Phases, each printing one JSON line:
                whole (2 x 512, frontends from frontend_batch): finite
                losses, flash eval gated as above, one launch per causal
                attention layer
+  adamw        AdamW's two kernels (csrc/adamw.cu) at deepseek-moe-16b's
+               55 leaves with 4 of its 28 layers (the benchmark's
+               train-4k cell), in a process of its own (``chip_smoke.py
+               --adamw``, also alone): each leaf's sum of squares against
+               float64 and its update against the plain version on the
+               same state (within ADAMW_TOL, else a failure); CUDA-event
+               medians, L2 flushed, of the sums of squares, the updates,
+               AdamW.step whole and the plain step, beside the 32 bytes a
+               parameter bound; one step's launches and counters
   dist         the distribution and launch layer, two processes.
                ``dryrun``: qwen2.5-32b x train_4k and x decode_32k on the
                16x16 mesh over a fake group of 256 ranks on the card's
@@ -378,6 +387,18 @@ DIST_FLOPS_TOL = 1e-3
 # allows 1e-6 of max |value| per tensor.
 DIST_STEP_RTOL = 1e-6
 DIST_TIMEOUT_S = 600
+# The adamw phase: csrc/adamw.cu at deepseek-moe-16b's 55 leaves with 4
+# of its 28 layers (the benchmark's train-4k cell: 2,770,880,512 float32
+# parameters), under the cell's AdamW (warmup_cosine(3e-3, 20, 200),
+# clip 1.0), gradients drawn at random on the card. Its bytes: the norm
+# reads each gradient once (4 B a parameter), the update reads g, p, mu,
+# nu and writes p, mu, nu (28 B): 32 B, 26.5 ms at 3.35 TB/s. Each leaf's
+# update through the kernel is held to the plain version's on the same
+# state within ADAMW_TOL of max |value| (the two round the clip's scale
+# and the moments' products apart by an ulp or so).
+ADAMW = {"arch": "deepseek-moe-16b", "n_layers": 4, "seed": 0,
+         "iters": 10, "plain_iters": 3, "timeout_s": 300}
+ADAMW_TOL = 1e-6
 # The graph phase's child, which traces one replay at the paper's size.
 GRAPH_TRACE_TIMEOUT_S = 300
 # The graph phase's windowed sweeps: replays back to back for 5 ms, the
@@ -2609,15 +2630,167 @@ def dist_main(part: str) -> int:
     return 0
 
 
+def phase_adamw() -> dict:
+    """The adamw phase in a process of its own (``chip_smoke.py
+    --adamw``, its result as its last line): its 44 GB of state freed at
+    exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--adamw"],
+        capture_output=True, text=True, timeout=ADAMW["timeout_s"],
+        cwd=ROOT)
+    if proc.returncode != 0:
+        raise AssertionError(f"adamw: exit {proc.returncode}\n"
+                             f"{proc.stderr[-6000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["process_s"] = time.perf_counter() - t0
+    return res
+
+
+def adamw_run(dev) -> dict:
+    """csrc/adamw.cu at ADAMW's leaves, after one warm-up step: each
+    leaf's sum of squares against float64 and its update through the
+    kernel against the plain version on copies of the same state (worst
+    error over max |value| of p, mu and nu; above ADAMW_TOL fails); then
+    CUDA-event medians, the L2 flushed before each call, of the sums of
+    squares of all leaves, the updates of all leaves, AdamW.step whole
+    (what the benchmark's train.opt_ms times, between the backward's and
+    the optimizer's marks) and the plain version's step, beside the
+    bytes bound; the launches and the counters of one step under a
+    telemetry registry."""
+    import dataclasses
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.adamw import kernel as adamw_k
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamW, global_norm, warmup_cosine
+
+    cfg = dataclasses.replace(get_config(ADAMW["arch"]),
+                              n_layers=ADAMW["n_layers"])
+    shapes = {k: p.shape for k, p in
+              LM(cfg, device="meta").named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(ADAMW["seed"])
+    params = {k: torch.randn(s, generator=gen, device=dev).mul_(0.02)
+              for k, s in shapes.items()}
+    grads = {k: torch.randn(s, generator=gen, device=dev).mul_(1e-3)
+             for k, s in shapes.items()}
+    n = sum(p.numel() for p in params.values())
+    opt = AdamW(learning_rate=warmup_cosine(3e-3, 20, 200),
+                grad_clip_norm=1.0)
+    state = opt.init(params)
+    opt.step(grads, state, params)
+    hyper = opt._hyper()
+
+    # Each leaf, kernel against plain, from copies of the same state.
+    count, bc1, bc2, lr = opt._begin(state)
+    sums, total = adamw_ops.sumsq(list(grads.values()))
+    scale = opt._scale(torch.sqrt(total))
+    sum_err, worst = 0.0, {"p": 0.0, "mu": 0.0, "nu": 0.0}
+    for (k, g), s_k in zip(grads.items(), sums):
+        want = float(torch.sum(g.double() ** 2))
+        sum_err = max(sum_err, abs(float(s_k) - want) / want)
+        runs = []
+        for update in (adamw_k.update, adamw_ops.update_plain):
+            t = [params[k].clone(), state["mu"][k].clone(),
+                 state["nu"][k].clone()]
+            update(t[0], g, t[1], t[2], None, scale, bc1, bc2, lr, **hyper)
+            runs.append(t)
+        for name, got, ref in zip(worst, *runs):
+            err = float((got - ref).abs().max() / ref.abs().max())
+            worst[name] = max(worst[name], err)
+        del runs
+    torch.cuda.synchronize()
+    if not (max(worst.values()) <= ADAMW_TOL and sum_err <= ADAMW_TOL):
+        raise AssertionError(f"adamw: kernel against plain {worst}, sums "
+                             f"of squares {sum_err} (tolerance {ADAMW_TOL})")
+
+    leaves = [(params[k], grads[k], state["mu"][k], state["nu"][k])
+              for k in params]
+
+    def updates():
+        for p, g, mu, nu in leaves:
+            adamw_k.update(p, g, mu, nu, None, scale, bc1, bc2, lr, **hyper)
+
+    def plain_step():
+        c, b1_, b2_, lr_ = opt._begin(state)
+        sc = opt._scale(global_norm(grads))
+        for p, g, mu, nu in leaves:
+            adamw_ops.update_plain(p, g, mu, nu, None, sc, b1_, b2_, lr_,
+                                   **hyper)
+        state["count"] = c
+
+    gs = [g for _, g, _, _ in leaves]
+    ms = {"sumsq_ms": time_cuda(lambda: adamw_ops.sumsq(gs),
+                                iters=ADAMW["iters"]),
+          "update_ms": time_cuda(updates, iters=ADAMW["iters"]),
+          "step_ms": time_cuda(lambda: opt.step(grads, state, params),
+                               iters=ADAMW["iters"]),
+          "plain_ms": time_cuda(plain_step, iters=ADAMW["plain_iters"])}
+    before = {f: f.launches for f in (adamw_k.sumsq, adamw_k.update)}
+    tel = obs.Telemetry()
+    with obs.use(tel):
+        opt.step(grads, state, params)
+    torch.cuda.synchronize()
+    launches = {f"adamw_{f.__name__}": f.launches - b
+                for f, b in before.items()}
+    counters = tel.counters()
+    if counters != {"optim.kernel_elems": n, "optim.plain_elems": 0} or \
+            launches != {"adamw_sumsq": len(leaves) + 1,
+                         "adamw_update": len(leaves)}:
+        raise AssertionError(f"adamw: a step counted {counters} and "
+                             f"launched {launches}")
+    finite = all(bool(torch.isfinite(t).all()) for leaf in leaves
+                 for t in leaf)
+    if not finite:
+        raise AssertionError("adamw: a non-finite parameter or moment")
+    bound = {"sumsq_ms": 4 * n, "update_ms": 28 * n, "step_ms": 32 * n,
+             "plain_ms": 32 * n}
+    return {
+        "arch": ADAMW["arch"], "n_layers": ADAMW["n_layers"],
+        "leaves": len(leaves), "params": n, **ms,
+        "bound_ms": {k: b / HBM_BYTES_PER_S * 1e3 for k, b in bound.items()},
+        "share_of_bound": {k: b / HBM_BYTES_PER_S * 1e3 / ms[k]
+                           for k, b in bound.items()},
+        "gb_per_s": {k: b / (ms[k] * 1e-3) / 1e9 for k, b in bound.items()},
+        "kernel_vs_plain_rel": worst, "sumsq_vs_float64_rel": sum_err,
+        "tol": ADAMW_TOL, "launches_per_step": launches,
+        "counters_per_step": counters,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def adamw_main() -> int:
+    """``--adamw``: the adamw phase alone (its child), the card's name and
+    power limit, and its JSON result last."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+
+    logs = build.build()["logs"].get("adamw", "")
+    print(nvidia_smi_line(), flush=True)
+    res = adamw_run(resolve_device())
+    res["ptxas"] = [ln.strip() for ln in logs.splitlines() if any(
+        w in ln for w in ("Compiling entry function", "registers", "spill"))]
+    print(json.dumps(res), flush=True)
+    return 0
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from repro_torch.kernels.adamw import kernel as adamw_k
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.pack import kernel as pack_k
     from repro_torch.kernels.spmv import kernel as spmv_k
 
     return {"ell_spmv": spmv_k.ell_spmv, "pack": pack_k.pack,
             "flash_attention": fa_k.flash_attention,
-            "ell_onehot": spmv_k.ell_onehot}
+            "ell_onehot": spmv_k.ell_onehot,
+            "adamw_sumsq": adamw_k.sumsq, "adamw_update": adamw_k.update}
 
 
 def phase_distributed(A, parts, x, dev) -> dict:
@@ -3753,6 +3926,8 @@ def main() -> int:
     emit("train", **train)
     torch.cuda.empty_cache()
     train_families = phase_train_families()
+    adamw = phase_adamw()
+    emit("adamw", **adamw)
     phase_dist()
     shard = phase_shard()
     emit("shard", **shard)
@@ -3768,9 +3943,11 @@ def main() -> int:
                    f["launches"]["flash_attention"]
                    for f in families.values())},
                "train": {k: n for k, n in train["launches"].items() if n},
-               "train_families": {"flash_attention": sum(
-                   f["launches"]["flash_attention"]
-                   for f in train_families.values() if "launches" in f)},
+               "train_families": {name: sum(
+                   f["launches"][name]
+                   for f in train_families.values() if "launches" in f)
+                   for name in ("flash_attention", "adamw_sumsq",
+                                "adamw_update")},
                "shard": shard["launches"]}
 
     def entry(name, source, replaces, calls, path, summed=(), **extra):
@@ -3823,6 +4000,21 @@ def main() -> int:
               "src/repro/kernels/spmv/kernel.py:98", kern["ell_onehot"],
               "none in the JAX package; its entry point ell_matvec_onehot "
               "(onehot_path)", summed=timed),
+        {"name": "adamw", "route": "cuda",
+         "source": "src/repro_torch/csrc/adamw.cu",
+         "replaces": "none: the JAX package's optimizer is jnp that XLA "
+                     "fuses", "path": "train",
+         "launches_per_step": adamw["launches_per_step"],
+         "launches_by_path": {
+             p: {k: n[k] for k in ("adamw_sumsq", "adamw_update")}
+             for p, n in by_path.items() if "adamw_update" in n},
+         "shape": f"{adamw['arch']}, {adamw['n_layers']} layers: "
+                  f"{adamw['leaves']} leaves, {adamw['params']} parameters",
+         "ms": adamw["step_ms"], "plain_ms": adamw["plain_ms"],
+         "library_ms": None, "bound_ms": adamw["bound_ms"]["step_ms"],
+         "bound_by": "bytes", "sumsq_ms": adamw["sumsq_ms"],
+         "update_ms": adamw["update_ms"],
+         "kernel_vs_plain_rel": adamw["kernel_vs_plain_rel"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3857,6 +4049,8 @@ if __name__ == "__main__":
         sys.exit(shard_main(sys.argv[2:]))
     if len(sys.argv) == 3 and sys.argv[1] == "--train-family":
         sys.exit(train_family_main(sys.argv[2]))
+    if sys.argv[1:] == ["--adamw"]:
+        sys.exit(adamw_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--graph-trace":
         sys.exit(graph_trace_main(int(sys.argv[2])))
     sys.exit(main())

@@ -15,6 +15,13 @@ returns the updates and a new state, as the reference. :meth:`AdamW.step`
 updates the parameters and the state in place, one parameter at a time,
 so that at full width no second copy of the state or of the updates is
 ever held: callers that want to start twice from one state pass copies.
+On a CUDA device :meth:`AdamW.step` runs each leaf through the
+hand-written kernels of ``kernels/adamw`` (one pass for the gradient
+norm, one fused update; the same arithmetic), elsewhere through their
+plain versions; with a telemetry registry current it counts the
+elements each route updated (``optim.kernel_elems``,
+``optim.plain_elems``). :meth:`AdamW.update` always takes the plain
+version.
 """
 from __future__ import annotations
 
@@ -23,7 +30,10 @@ import math
 from typing import Callable
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate
+
+from repro_torch import obs
+from repro_torch.kernels.adamw import ops as adamw_ops
 
 
 def warmup_cosine(peak_lr: float, warmup_steps: int, total_steps: int,
@@ -70,46 +80,35 @@ class AdamW:
         return torch.tensor(self.learning_rate, dtype=torch.float32,
                             device=count.device)
 
-    def _scale(self, grads: dict) -> torch.Tensor | None:
-        if self.grad_clip_norm is None:
-            return None
-        gnorm = global_norm(grads)
+    def _scale(self, gnorm: torch.Tensor) -> torch.Tensor:
         return torch.clamp(self.grad_clip_norm / gnorm.clamp_min(1e-9),
                            max=1.0)
 
-    def _moments(self, g: torch.Tensor, scale, mu: torch.Tensor,
-                 nu: torch.Tensor) -> None:
-        """mu, nu of one parameter, in place."""
-        g = g.float() if scale is None else g.float() * scale
-        mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
-        nu.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
-
-    def _update(self, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                bc1, bc2, lr) -> torch.Tensor:
-        """-lr * (m/bc1 / (sqrt(v/bc2) + eps) + wd * p), float32."""
-        den = (v / bc2).sqrt_().add_(self.eps)
-        step = (m / bc1).div_(den)
-        del den
-        return step.add_(p.float(), alpha=self.weight_decay).mul_(-lr)
-
-    def _begin(self, grads: dict, state: dict):
+    def _begin(self, state: dict):
         count = state["count"] + 1
         c = count.float()
-        return (count, self._scale(grads), 1 - self.b1 ** c,
-                1 - self.b2 ** c, self._lr(count))
+        return count, 1 - self.b1 ** c, 1 - self.b2 ** c, self._lr(count)
+
+    def _hyper(self) -> dict:
+        return dict(b1=self.b1, b2=self.b2, eps=self.eps,
+                    weight_decay=self.weight_decay)
 
     @torch.no_grad()
     def update(self, grads: dict, state: dict, params: dict):
         """Returns (updates, new_state); apply with params + updates."""
-        count, scale, bc1, bc2, lr = self._begin(grads, state)
+        count, bc1, bc2, lr = self._begin(state)
+        scale = None if self.grad_clip_norm is None else \
+            self._scale(global_norm(grads))
         mu = {k: m.clone() for k, m in state["mu"].items()}
         nu = {k: v.clone() for k, v in state["nu"].items()}
         anchor = state.get("master", params)
         updates = {}
         for k, g in grads.items():
-            self._moments(g, scale, mu[k], nu[k])
-            updates[k] = self._update(anchor[k], mu[k], nu[k], bc1, bc2,
-                                      lr).to(anchor[k].dtype)
+            adamw_ops.moments_plain(g, scale, mu[k], nu[k], self.b1,
+                                    self.b2)
+            updates[k] = adamw_ops.step_plain(
+                anchor[k], mu[k], nu[k], bc1, bc2, lr, self.eps,
+                self.weight_decay).to(anchor[k].dtype)
         new_state = {"mu": mu, "nu": nu, "count": count}
         if self.master_weights:
             new_state["master"] = {k: m + updates[k]
@@ -120,25 +119,34 @@ class AdamW:
     def step(self, grads: dict, state: dict, params: dict):
         """Updates ``params`` and ``state`` in place, one parameter at a
         time, and returns them."""
-        count, scale, bc1, bc2, lr = self._begin(grads, state)
-        if isinstance(scale, DTensor):
-            scale = scale.full_tensor()
+        count, bc1, bc2, lr = self._begin(state)
+        bc1, bc2, lr = _local(bc1), _local(bc2), _local(lr)
         master = state.get("master")
-        for k, g in grads.items():
-            # A DTensor parameter updates its local shard: the step is
-            # elementwise, and its gradient and moments share its
-            # placements.
-            p, mu, nu = (_local(t) for t in (
-                params[k], state["mu"][k], state["nu"][k]))
-            self._moments(_local(g, params[k]), scale, mu, nu)
-            anchor = p if master is None else _local(master[k])
-            u = self._update(anchor, mu, nu, bc1, bc2, lr)
-            if master is None:
-                p.add_(u.to(p.dtype))
-            else:
-                anchor.add_(u)
-                p.copy_(anchor)
-            del u
+        # A DTensor parameter updates its local shard: the step is
+        # elementwise, and its gradient and moments share its placements.
+        leaves = {k: (_local(params[k]), _local(g, params[k]),
+                      _local(state["mu"][k]), _local(state["nu"][k]),
+                      None if master is None else _local(master[k]))
+                  for k, g in grads.items()}
+        scale = None
+        if self.grad_clip_norm is not None:
+            sums, total = adamw_ops.sumsq(
+                [leaf[1] for leaf in leaves.values()])
+            if any(isinstance(params[k], DTensor) for k in leaves):
+                # Added as global_norm adds the sums of DTensors: each
+                # partial over the mesh dims its leaf is sharded on.
+                total = sum(_as_sum_over(s, params[k])
+                            for s, k in zip(sums, leaves))
+            scale = self._scale(torch.sqrt(total))
+            if isinstance(scale, DTensor):
+                scale = scale.full_tensor()
+        hyper, on_card = self._hyper(), 0
+        for p, g, mu, nu, m in leaves.values():
+            adamw_ops.update(p, g, mu, nu, m, scale, bc1, bc2, lr, **hyper)
+            on_card += p.numel() if p.device.type == "cuda" else 0
+        obs.counter("optim.kernel_elems").add(on_card)
+        obs.counter("optim.plain_elems").add(
+            sum(leaf[0].numel() for leaf in leaves.values()) - on_card)
         state["count"] = count
         return params, state
 
@@ -153,9 +161,19 @@ def _local(t: torch.Tensor, like: torch.Tensor | None = None):
     return t.to_local()
 
 
+def _as_sum_over(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A local sum over ``like``'s shard as the DTensor a sum over
+    ``like`` gives: partial on each mesh dim ``like`` is sharded on,
+    replicated on the others; a plain tensor as it is."""
+    if not isinstance(like, DTensor):
+        return s
+    return DTensor.from_local(
+        s, like.device_mesh, [q if isinstance(q, Replicate) else Partial()
+                              for q in like.placements], run_check=False)
+
+
 def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tree.values()))
+    return torch.sqrt(sum(adamw_ops.sumsq_plain(t) for t in tree.values()))
 
 
 def apply_updates(params: dict, updates: dict) -> dict:

@@ -1080,3 +1080,150 @@ def test_shard_child_refuses_more_ranks_than_cards(dev):
     out = _shard_child(torch.cuda.device_count() + 1)
     assert out.returncode != 0
     assert "cards, one a rank; this machine has" in out.stderr
+
+
+# -- AdamW (csrc/adamw.cu) ----------------------------------------------------
+
+# Leaves: one element, fewer than a vector, one past a multiple of it,
+# deepseek-moe-16b's expert slab, and two views offset by one element:
+# "offset" with every array offset alike (a scalar head and tail around
+# the vector body), "offset_p" with only parameter and gradient offset
+# (no head aligns them all: element by element).
+ADAMW_LEAVES = {"one": (1,), "three": (3,), "odd": (4097,),
+                "slab": (2048, 1408), "offset": (4097,),
+                "offset_p": (4097,)}
+# (parameter, gradient, master copy): the dtypes the CUDA path meets.
+ADAMW_DTYPES = {"f32": (torch.float32, torch.float32, False),
+                "bf16_grads": (torch.float32, torch.bfloat16, False),
+                "bf16_master": (torch.bfloat16, torch.bfloat16, True)}
+
+
+def _offset_by_one(t: torch.Tensor) -> torch.Tensor:
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].copy_(t.reshape(-1))
+
+
+def _same_place(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` at its offset from a fresh allocation: the same
+    alignment, so the same split into head, vectors and tail."""
+    buf = torch.empty(t.storage_offset() + t.numel(), dtype=t.dtype,
+                      device=t.device)
+    return buf[t.storage_offset():].view(t.shape).copy_(t)
+
+
+def _adamw_case(dev, case, clip):
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+
+    pdt, gdt, master = ADAMW_DTYPES[case]
+    gen = torch.Generator().manual_seed(11)
+    params, grads = {}, [{} for _ in range(5)]
+    for k, shape in ADAMW_LEAVES.items():
+        p = torch.randn(shape, generator=gen).to(dev, pdt)
+        params[k] = _offset_by_one(p) if k.startswith("offset") else p
+        for step in grads:
+            g = (3 * torch.randn(shape, generator=gen)).to(dev, gdt)
+            step[k] = _offset_by_one(g) if k.startswith("offset") else g
+    opt = AdamW(learning_rate=warmup_cosine(1e-2, 2, 5), weight_decay=0.3,
+                grad_clip_norm=clip, master_weights=master)
+    state = opt.init(params)
+    for name in ("mu", "nu") + (("master",) if master else ()):
+        state[name]["offset"] = _offset_by_one(state[name]["offset"])
+    return opt, params, state, grads
+
+
+def _adamw_copy(params, state):
+    return ({k: _same_place(p) for k, p in params.items()},
+            {name: (_same_place(v) if name == "count" else
+                    {k: _same_place(t) for k, t in v.items()})
+             for name, v in state.items()})
+
+
+def _plain_adamw_step(opt, grads, state, params):
+    """AdamW.step with kernels/adamw's plain version on the card."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.optim.adamw import global_norm
+
+    count, bc1, bc2, lr = opt._begin(state)
+    scale = None if opt.grad_clip_norm is None else \
+        opt._scale(global_norm(grads))
+    master = state.get("master")
+    for k, g in grads.items():
+        adamw_ops.update_plain(
+            params[k], g, state["mu"][k], state["nu"][k],
+            None if master is None else master[k], scale, bc1, bc2, lr,
+            **opt._hyper())
+    state["count"] = count
+
+
+@pytest.mark.parametrize("clip", [None, 1.0])
+@pytest.mark.parametrize("case", list(ADAMW_DTYPES))
+def test_adamw_kernels_match_plain_over_five_steps(dev, case, clip):
+    """Five steps through the kernels against the plain version on the
+    card: mu, nu and p (p's float32 master copy where p is bfloat16, and
+    p that copy rounded) within 1e-6 of their max |value| a leaf; two runs
+    from one state bit-equal; each step launches one update a leaf and,
+    with the clip, one sum of squares a leaf and the finishing one; every
+    element counted on the kernel route."""
+    from repro_torch import obs
+    from repro_torch.kernels.adamw import kernel as adamw_k
+
+    opt, params, state, grads = _adamw_case(dev, case, clip)
+    runs = []
+    for _ in range(2):
+        p, s = _adamw_copy(params, state)
+        tel = obs.Telemetry()
+        with obs.use(tel):
+            for g in grads:
+                before = (adamw_k.sumsq.launches, adamw_k.update.launches)
+                opt.step(g, s, p)
+                assert (adamw_k.sumsq.launches - before[0],
+                        adamw_k.update.launches - before[1]) == (
+                    0 if clip is None else len(g) + 1, len(g))
+        n = sum(t.numel() for t in params.values())
+        assert tel.counters() == {"optim.kernel_elems": 5 * n,
+                                  "optim.plain_elems": 0}
+        runs.append((p, s))
+    (p, s), (p2, s2) = runs
+    pp, ps = _adamw_copy(params, state)
+    for g in grads:
+        _plain_adamw_step(opt, g, ps, pp)
+    torch.cuda.synchronize()
+    master = "master" in s
+    for k in ADAMW_LEAVES:
+        names = ("mu", "nu") + (("master",) if master else ())
+        assert torch.equal(p[k], p2[k]), k
+        for name in names:
+            assert torch.equal(s[name][k], s2[name][k]), (name, k)
+        pairs = [(s[name][k], ps[name][k], name) for name in names]
+        if master:
+            assert torch.equal(p[k], s["master"][k].to(p[k].dtype)), k
+        else:
+            pairs.append((p[k], pp[k], "p"))
+        for got, want, name in pairs:
+            err = float((got.float() - want.float()).abs().max())
+            assert err <= 1e-6 * float(want.float().abs().max()), \
+                (name, k, err)
+        assert p[k].dtype == params[k].dtype
+
+
+@pytest.mark.parametrize("gdt", [torch.float32, torch.bfloat16])
+def test_adamw_sumsq_is_deterministic_and_exact(dev, gdt):
+    """Each leaf's sum of squares within 1e-6 of float64's, the total the
+    leaves' float32 sums added in order, and the same bits twice; the
+    9,000,001-element leaf runs the kernel's four-vector loop."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
+
+    gen = torch.Generator().manual_seed(5)
+    gs = [torch.randn(shape, generator=gen).to(dev, gdt)
+          for shape in ADAMW_LEAVES.values()]
+    gs.append(_offset_by_one(torch.randn(9_000_001, generator=gen).to(
+        dev, gdt)))
+    gs[-2] = _offset_by_one(gs[-2])
+    sums, total = adamw_ops.sumsq(gs)
+    sums2, total2 = adamw_ops.sumsq(gs)
+    assert torch.equal(sums, sums2)
+    assert torch.equal(total, total2)
+    want = [float(torch.sum(g.double() ** 2)) for g in gs]
+    for got, w in zip(sums, want):
+        assert abs(float(got) - w) <= 1e-6 * w
+    assert torch.equal(total, sum(sums))

@@ -51,6 +51,8 @@ from repro.models.model import LM as RLM  # noqa: E402
 from repro.optim import adamw as radamw  # noqa: E402
 from repro.train.step import make_train_step as r_make_train_step  # noqa: E402,E501
 from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.kernels.adamw import kernel as adamw_k  # noqa: E402
+from repro_torch.kernels.adamw import ops as adamw_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import mha  # noqa: E402
 from repro_torch.models.convert import params_from_jax, tree_from_jax  # noqa: E402,E501
 from repro_torch.models.model import LM  # noqa: E402
@@ -144,6 +146,151 @@ def test_adamw_weight_decay_decoupled_and_clip_bounds_norm():
     p = {"w": torch.ones(4)}
     _, st = opt.update({"w": torch.full((4,), 100.0)}, opt.init(p), p)
     assert float(adamw.global_norm(st["mu"])) <= 0.1 * 200.0 + 1e-3
+
+
+def chained_step(opt, grads, state, params):
+    """AdamW.step as the port ran it before kernels/adamw: the norm over
+    the whole tree, then a chain of PyTorch ops a leaf."""
+    count = state["count"] + 1
+    c = count.float()
+    scale = None
+    if opt.grad_clip_norm is not None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                               for t in grads.values()))
+        scale = torch.clamp(opt.grad_clip_norm / gnorm.clamp_min(1e-9),
+                            max=1.0)
+    bc1, bc2, lr = 1 - opt.b1 ** c, 1 - opt.b2 ** c, opt._lr(count)
+    master = state.get("master")
+    for k, g in grads.items():
+        p, mu, nu = params[k], state["mu"][k], state["nu"][k]
+        g = g.float() if scale is None else g.float() * scale
+        mu.mul_(opt.b1).add_(g, alpha=1 - opt.b1)
+        nu.mul_(opt.b2).addcmul_(g, g, value=1 - opt.b2)
+        anchor = p if master is None else master[k]
+        den = (nu / bc2).sqrt_().add_(opt.eps)
+        u = (mu / bc1).div_(den).add_(anchor.float(),
+                                      alpha=opt.weight_decay).mul_(-lr)
+        if master is None:
+            p.add_(u.to(p.dtype))
+        else:
+            anchor.add_(u)
+            p.copy_(anchor)
+    state["count"] = count
+    return params, state
+
+
+@pytest.mark.parametrize("clip", [None, 1.0])
+@pytest.mark.parametrize("pdt,master", [
+    (torch.float32, False), (torch.float32, True), (torch.bfloat16, True)])
+def test_adamw_plain_route_is_the_chained_step_bit_for_bit(pdt, master,
+                                                           clip):
+    """On the CPU AdamW.step takes kernels/adamw's plain version: five
+    steps give the parameters, moments, master copies and count of the
+    chain of ops it replaced, bit for bit."""
+    p0, grads, _, popt = adam_case(master, clip, sched=True, seed=7)
+    popt = dataclasses.replace(popt, weight_decay=0.3)
+    tp = {k: torch.from_numpy(v).to(pdt) for k, v in p0.items()}
+    cp = {k: v.clone() for k, v in tp.items()}
+    ts, cs = popt.init(tp), popt.init(cp)
+    for g in grads:
+        tg = {k: torch.from_numpy(v).to(pdt) for k, v in g.items()}
+        tp, ts = popt.step(tg, ts, tp)
+        cp, cs = chained_step(popt, tg, cs, cp)
+    assert torch.equal(ts["count"], cs["count"])
+    for k in SHAPES:
+        assert torch.equal(tp[k], cp[k]), k
+        for m in ("mu", "nu") + (("master",) if master else ()):
+            assert torch.equal(ts[m][k], cs[m][k]), (m, k)
+
+
+@pytest.mark.parametrize("clip", [None, 1.0])
+def test_adamw_counts_plain_elements_on_the_cpu(clip):
+    """Off the card every element takes the plain route: under a
+    registry ``optim.plain_elems`` counts each parameter once a step,
+    ``optim.kernel_elems`` nothing, and no kernel is launched."""
+    from repro_torch import obs
+
+    p0, grads, _, popt = adam_case(False, clip, sched=False)
+    tp = {k: torch.from_numpy(v) for k, v in p0.items()}
+    ts = popt.init(tp)
+    launched = (adamw_k.sumsq.launches, adamw_k.update.launches)
+    tel = obs.Telemetry()
+    with obs.use(tel):
+        for g in grads[:2]:
+            popt.step({k: torch.from_numpy(v) for k, v in g.items()}, ts, tp)
+    n = sum(int(np.prod(s)) for s in SHAPES.values())
+    assert tel.counters() == {"optim.kernel_elems": 0,
+                              "optim.plain_elems": 2 * n}
+    assert (adamw_k.sumsq.launches, adamw_k.update.launches) == launched
+
+
+@pytest.mark.parametrize("p,g,master", [
+    ("float32", "float32", None), ("float32", "bfloat16", None),
+    ("float32", "float32", "float32"), ("float32", "bfloat16", "float32"),
+    ("bfloat16", "float32", "float32"), ("bfloat16", "bfloat16", "float32")])
+def test_adamw_kernel_names_the_dtypes_it_takes(p, g, master):
+    def t(name):
+        return None if name is None else torch.zeros(2, dtype=getattr(
+            torch, name))
+
+    name = adamw_k.update_function(t(p), t(g), t(master))
+    short = {"float32": "f32", "bfloat16": "bf16"}
+    assert name == (f"adamw_update_p{short[p]}_g{short[g]}" +
+                    ("_master" if master else ""))
+
+
+@pytest.mark.parametrize("p,g,master", [
+    ("bfloat16", "bfloat16", None), ("float16", "float16", "float32"),
+    ("float32", "float16", None), ("float64", "float64", None),
+    ("bfloat16", "bfloat16", "bfloat16"), ("float32", "float64", None)])
+def test_adamw_kernel_refuses_other_dtypes_before_any_launch(p, g, master):
+    """The combinations the kernel does not take raise in the wrapper's
+    argument check, on CPU tensors, before it looks for a card."""
+    def t(name):
+        return None if name is None else torch.zeros(4, dtype=getattr(
+            torch, name))
+
+    pt, gt, mt = t(p), t(g), t(master)
+    with pytest.raises(TypeError, match="adamw update"):
+        adamw_k.update_function(pt, gt, mt)
+    one = torch.ones(())
+    with pytest.raises(TypeError, match="adamw update"):
+        adamw_k.update(pt, gt, torch.zeros(4), torch.zeros(4), mt, None, one,
+                       one, one, b1=0.9, b2=0.95, eps=1e-8,
+                       weight_decay=0.1)
+    if g not in ("float32", "bfloat16"):
+        with pytest.raises(TypeError, match="adamw sumsq"):
+            adamw_k.sumsq([gt])
+
+
+def test_adamw_kernel_wants_card_tensors():
+    """Dtypes it takes, on the CPU: refused for the device, not run."""
+    one, z = torch.ones(()), torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        adamw_k.update(z.clone(), z, z.clone(), z.clone(), None, None, one,
+                       one, one, b1=0.9, b2=0.95, eps=1e-8,
+                       weight_decay=0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        adamw_k.sumsq([z])
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.float32, 4),
+                                         (torch.bfloat16, 8)])
+@pytest.mark.parametrize("offset", range(9))
+def test_adamw_kernel_split_aligns_every_array(dtype, width, offset):
+    """The vector body starts where every array is 16-byte aligned; a
+    set of arrays no head aligns goes element by element."""
+    base = torch.zeros(64 + 16, dtype=torch.float32)
+    n = 37
+    a = base.to(dtype)[offset:offset + n]
+    head, nvec = adamw_k._split(n, width, a)
+    assert 0 <= head < width
+    assert (a.data_ptr() + head * a.element_size()) % 16 == 0
+    assert nvec == (n - head) // width
+    f = torch.zeros(64, dtype=torch.float32)[offset:offset + n]
+    g = torch.zeros(64, dtype=torch.float32)[offset + 1:offset + 1 + n]
+    if (f.data_ptr() - g.data_ptr()) % 16:
+        assert adamw_k._split(n, 4, f, g) == (n, 0)
 
 
 # -- loss and gradients -----------------------------------------------------------
@@ -336,7 +483,9 @@ def test_step_spans_and_moe_counters(monkeypatch, remat, dispatch,
     ``train.backward`` a microbatch and one ``train.optimizer``; the MoE
     counters equal a direct count of ``_positions``' ``keep`` in the
     same forward, once, though the layer checkpoint's recomputation
-    routes again; with the disabled registry nothing is counted."""
+    routes again; the optimizer counts every parameter on the plain
+    route and none on the kernel's; with the disabled registry nothing
+    is counted."""
     from repro_torch import obs
     from repro_torch.models import moe
 
@@ -376,6 +525,8 @@ def test_step_spans_and_moe_counters(monkeypatch, remat, dispatch,
         make_train_step(m, opt, microbatches)(p, opt.init(p), tb)
     # With remat the checkpoint routes each layer again in the backward.
     assert len(keeps) == cfg.n_layers * microbatches * (2 if remat else 1)
+    want.update({"optim.kernel_elems": 0, "optim.plain_elems": sum(
+        t.numel() for t in p.values())})
     assert tel.counters() == want
     spans = tel.spans_by_name()
     assert {k: v["count"] for k, v in spans.items()} == {
