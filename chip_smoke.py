@@ -212,6 +212,18 @@ Phases, each printing one JSON line:
                medians, L2 flushed, of the sums of squares, the updates,
                AdamW.step whole and the plain step, beside the 32 bytes a
                parameter bound; one step's launches and counters
+  mla          (``chip_smoke.py --mla`` alone) moonlight-16b-a3b's latent
+               attention at its published widths: the dense first layer
+               and one MoE layer (MLA_SMOKE), weights drawn at the
+               benchmark's scales, against the plain reference
+               (portbench/reference/mla_moe_lm.py, float32): the bf16
+               forward's logits at every position of 1 x 4,096 tokens
+               (||port - ref|| / ||ref|| beside the float8 control's),
+               a prefill of 1,024 then one decode step through the latent
+               cache against the reference's forward over the 1,025
+               tokens, one train step's loss and gradients finite, the
+               ``attn.mla`` spans' device ms of a forward at 8,192 tokens,
+               and the peak memory
   dist         the distribution and launch layer, two processes.
                ``dryrun``: qwen2.5-32b x train_4k and x decode_32k on the
                16x16 mesh over a fake group of 256 ranks on the card's
@@ -254,6 +266,7 @@ it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -399,6 +412,14 @@ DIST_TIMEOUT_S = 600
 ADAMW = {"arch": "deepseek-moe-16b", "n_layers": 4, "seed": 0,
          "iters": 10, "plain_iters": 3, "timeout_s": 300}
 ADAMW_TOL = 1e-6
+# The mla phase: moonlight-16b-a3b's dense first layer and one MoE layer
+# at published widths; the forward at ``seq`` tokens, a prefill of
+# ``prompt`` and one decode step (each within MLA_TOL of the reference's
+# logits, ||port - ref|| / ||ref||: bf16 against float32, the float8
+# control's reading beside), the spans at ``long_seq``.
+MLA_SMOKE = {"n_layers": 2, "seq": 4096, "prompt": 1024, "long_seq": 8192,
+             "seed": 0}
+MLA_TOL = 0.05
 # The graph phase's child, which traces one replay at the paper's size.
 GRAPH_TRACE_TIMEOUT_S = 300
 # The graph phase's windowed sweeps: replays back to back for 5 ms, the
@@ -2780,6 +2801,114 @@ def adamw_main() -> int:
     return 0
 
 
+def mla_run(dev) -> dict:
+    """The mla phase (module docstring): the port's moonlight-16b-a3b at
+    MLA_SMOKE's depth against portbench/reference/mla_moe_lm.py."""
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    from portbench import inputs
+    from portbench.reference import mla_moe_lm as ref
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import make_train_step
+
+    m = MLA_SMOKE
+    cfg = dataclasses.replace(get_config("moonlight-16b-a3b"),
+                              n_layers=m["n_layers"])
+    s = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+         "heads": cfg.n_heads, "q_nope": cfg.mla.qk_nope_head_dim,
+         "q_rope": cfg.mla.qk_rope_head_dim, "v_dim": cfg.mla.v_head_dim,
+         "kv_rank": cfg.mla.kv_lora_rank, "d_ff": cfg.d_ff,
+         "dense": cfg.first_k_dense, "vocab": cfg.vocab,
+         "d_expert": cfg.moe.d_expert, "experts": cfg.moe.n_experts,
+         "top_k": cfg.moe.top_k, "shared": cfg.moe.n_shared,
+         "eps": cfg.rms_eps, "theta": cfg.rope_theta,
+         "routed_scale": cfg.moe.routed_scale,
+         "aux": cfg.moe.router_aux_weight, "bias_rate": cfg.moe.bias_rate,
+         "capacity_factor": cfg.moe.capacity_factor, "z_loss": cfg.z_loss}
+    shapes = ref.leaf_shapes(s)
+    scales = ref.leaf_scales(shapes)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = LM(cfg, device=dev, seed=m["seed"])
+    _, views = inputs.draw_weights(shapes, scales, m["seed"], dev)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(views[k])
+    biases = ref.initial_biases(s, dev)
+    stream = inputs.TokenStream(m["seed"], 1, m["seq"], s["vocab"], dev)
+    batch = stream.next()
+    toks = batch["tokens"]
+    out: dict = {"layers": cfg.n_layers, "seq": m["seq"]}
+    with torch.no_grad():
+        got = model(toks)[0].float()
+        want = ref.logits(views, biases, toks, s)[0]
+        fp8 = ref.logits(views, biases, toks, s, "fp8")[0]
+
+    def gap(a, b):
+        return float(torch.linalg.vector_norm((a - b).double()) /
+                     torch.linalg.vector_norm(b.double()))
+
+    out["logit_gap"] = gap(got, want)
+    out["logit_gap_fp8_control"] = gap(fp8, want)
+    del got, fp8
+    n = m["prompt"]
+    last, caches = model.prefill(toks[:, :n], n + 1)
+    dec, _ = model.decode_step(toks[:, n:n + 1], n, caches)
+    with torch.no_grad():
+        full = ref.logits(views, biases, toks[:, :n + 1], s, prompt_len=n)[0]
+    out["prefill_gap"] = gap(last[0, -1].float(), full[n - 1])
+    out["decode_gap"] = gap(dec[0, -1].float(), full[n])
+    out["cache_values_a_token_a_layer"] = int(sum(
+        c.shape[-1] for c in caches[0].values()))
+    del caches, last, dec, full, want, views
+    opt = AdamW(learning_rate=1e-4)
+    step = make_train_step(model, opt)
+    params = dict(model.named_parameters())
+    state = opt.init(params)
+    params, state, met = step(params, state, batch)
+    out["train_loss"] = float(met["loss"])
+    out["bias_abs"] = float(sum(p["router_bias"].abs().sum()
+                                for p in model.routers()))
+    del state, params
+    model.requires_grad_(False)
+    long = inputs.TokenStream(m["seed"], 1, m["long_seq"], s["vocab"],
+                              dev).next()["tokens"]
+    tel = obs.Telemetry()
+    with obs.use(tel), torch.no_grad():
+        model(long)
+    torch.cuda.synchronize(dev)
+    spans = tel.spans_by_name()["attn.mla"]
+    out["mla_fwd_ms_8k"] = None if spans["device_s"] is None else \
+        1e3 * spans["device_s"]
+    out["mla_spans_8k"] = spans["count"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["ok"] = (out["logit_gap"] < out["logit_gap_fp8_control"] and
+                 max(out["prefill_gap"], out["decode_gap"]) < MLA_TOL and
+                 math.isfinite(out["train_loss"]))
+    return out
+
+
+def mla_main() -> int:
+    """``--mla``: the mla phase alone, the card's name and power limit,
+    and its JSON result last."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.device import resolve_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(nvidia_smi_line(), flush=True)
+    res = mla_run(resolve_device())
+    print(json.dumps(res), flush=True)
+    return 0 if res["ok"] else 1
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels.adamw import kernel as adamw_k
@@ -4051,6 +4180,8 @@ if __name__ == "__main__":
         sys.exit(train_family_main(sys.argv[2]))
     if sys.argv[1:] == ["--adamw"]:
         sys.exit(adamw_main())
+    if sys.argv[1:] == ["--mla"]:
+        sys.exit(mla_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--graph-trace":
         sys.exit(graph_trace_main(int(sys.argv[2])))
     sys.exit(main())

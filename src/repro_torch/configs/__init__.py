@@ -20,6 +20,13 @@ _MODULES: dict[str, str] = {
 
 ARCHS = list(_MODULES)
 
+#: Architectures of the port alone, which the JAX package does not have
+#: (so not in :data:`ARCHS`, which its tests hold equal to the JAX
+#: package's list); ``get_config``/``get_reduced`` and the launchers take
+#: them too.
+PORT_ARCHS = ["moonlight-16b-a3b"]
+_MODULES["moonlight-16b-a3b"] = "repro_torch.configs.moonlight_16b_a3b"
+
 
 def get_config(name: str) -> ModelConfig:
     return importlib.import_module(_MODULES[name]).CONFIG

@@ -1,5 +1,8 @@
-"""moonshot-v1-16b-a3b [moe]: kimi/moonlight, 64 routed top-6 + 2 shared
-[hf:moonshotai/Moonlight-16B-A3B]."""
+"""moonshot-v1-16b-a3b [moe]: the JAX package's stand-in of that name,
+mirrored: deepseek-moe-16b's layer (multi-head attention, a softmax
+router, 64 routed top-6 + 2 shared) at 48 layers. It is not
+Moonlight-16B-A3B as published (latent attention, a sigmoid router with
+a balancing bias, a dense first layer): ``moonlight-16b-a3b`` is."""
 from repro_torch.models.config import ModelConfig, MoeConfig
 
 CONFIG = ModelConfig(

@@ -22,17 +22,19 @@ h // g.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import constrain, unshard_grad
 from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import rope
+from repro_torch.models.layers import rmsnorm, rope
 from repro_torch.models.params import Spec
 
 NEG_INF = -1e30
@@ -40,6 +42,8 @@ ROUTES = ("flash", "plain")
 
 
 def attention_specs(cfg: ModelConfig) -> dict:
+    if cfg.mla is not None:
+        return mla_specs(cfg)
     d, dh = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.n_heads_padded, cfg.n_kv_heads
     out = {
@@ -175,8 +179,9 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         softcap: float | None = None) -> torch.Tensor:
     """Online-softmax attention over KV blocks (the plain route).
 
-    q: (B, Sq, Hq, Dh);  k, v: (B, T, K, Dh) where K is the stored-KV
-    width (after repeat_kv) and Hq = g_p * K.
+    q, k: (B, Sq | T, Hq | K, Dh); v: (B, T, K, Dv) where K is the
+    stored-KV width (after repeat_kv) and Hq = g_p * K; the output is
+    (B, Sq, Hq, Dv) (Dv <= Dh: latent attention's is narrower).
     q_positions: (Sq,), kv_positions: (T,), kv_valid: (T,) bool.
     q is scaled as :func:`q_scale` says. The last block is short where
     the reference pads it with invalid keys: the same sums. On a mesh
@@ -198,10 +203,14 @@ def _streaming(q, k, v, q_positions, kv_positions, kv_valid, *, causal,
     qh = constrain(qh, ("batch", ha, None, None, None))
     k = constrain(k, ("batch", None, ha, None))
     v = constrain(v, ("batch", None, ha, None))
+    # Latent attention's values are narrower than its queries (128 of
+    # 192); elsewhere they are as wide.
+    dv = v.shape[-1]
     m = constrain(torch.full_like(qh[..., 0], NEG_INF),
                   ("batch", ha, None, None))
     l = constrain(torch.zeros_like(qh[..., 0]), ("batch", ha, None, None))
-    acc = constrain(torch.zeros_like(qh), ("batch", ha, None, None, None))
+    acc = constrain(torch.zeros_like(qh if dv == dh else qh[..., :dv]),
+                    ("batch", ha, None, None, None))
     # Nested remat, as the reference's: under autograd each block's
     # scores are recomputed in the backward pass, not saved.
     remat = torch.is_grad_enabled()
@@ -213,7 +222,7 @@ def _streaming(q, k, v, q_positions, kv_positions, kv_valid, *, causal,
         m, l, acc = checkpoint(_kv_block, *args, use_reentrant=False) \
             if remat else _kv_block(*args)
     out = acc / l.clamp_min(1e-30)[..., None]
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv)
     return out.to(q.dtype)
 
 
@@ -378,3 +387,109 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, pos: int,
                           window=cfg.attn_window,
                           softcap=cfg.attn_logit_softcap)
     return out_proj(p, o, cfg), cache_k, cache_v
+
+
+# -- multi-head latent attention (DeepSeek-V2/V3, Moonlight) ------------------
+#
+# Full-rank queries q = x wq, (B, S, H, dn + dr) = [q_nope | q_pe]; a
+# latent [c | k_pe] = x wkva, c of width r normed by its own RMSNorm,
+# k_pe one rotary key part a token that every head shares; [k_nope | v]
+# = c wkvb, (B, S, H, dn + dv). Scores (q_nope . k_nope + q_pe . k_pe)
+# (dn + dr) ** -0.5, causal softmax, o = P v (B, S, H, dv), then wo.
+# Training and prefill attend through the streaming softmax over the
+# widened keys (the flash kernel takes one head width for q, k and v);
+# the decode cache holds the latent (c and the rotated k_pe, r + dr
+# values a token) and decode reads it with wkvb absorbed into the query
+# and the output. Each call is a span ``attn.mla`` with its device
+# interval, not opened again by a layer checkpoint's recomputation.
+
+def mla_specs(cfg: ModelConfig) -> dict:
+    """Every matrix drawn at 1 / sqrt(its fan-in): d_model for wq and
+    wkva, the latent's r for wkvb, heads x dv for wo."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    r, dr, dv = m.kv_lora_rank, m.qk_rope_head_dim, m.v_head_dim
+    return {
+        "wq": Spec((d, h, m.qk_head_dim), ("d_model", "heads", "head_dim"),
+                   scale=d ** -0.5),
+        "wkva": Spec((d, r + dr), ("d_model", None), scale=d ** -0.5),
+        "kv_norm": Spec((r,), (None,), init="ones"),
+        "wkvb": Spec((r, h, m.qk_nope_head_dim + dv),
+                     (None, "heads", "head_dim"), scale=r ** -0.5),
+        "wo": Spec((h, dv, d), ("heads", "head_dim", "d_model"),
+                   scale=(h * dv) ** -0.5),
+    }
+
+
+def _mla_span(x: torch.Tensor):
+    if torch._C._current_graph_task_id() != -1:     # a recomputation
+        return contextlib.nullcontext()
+    return obs.span("attn.mla", device=x.device)
+
+
+def _mla_project(p, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """(q_nope (B,S,H,dn), q_pe (B,S,H,dr) rotated, c (B,S,r) normed,
+    k_pe (B,S,dr) rotated), in x's dtype."""
+    m, dt = cfg.mla, x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    q_nope, q_pe = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    c, k_pe = (x @ p["wkva"].to(dt)).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    c = rmsnorm(c, p["kv_norm"], cfg.rms_eps)
+    q_pe = rope(q_pe, positions, cfg.rope_theta)
+    k_pe = rope(k_pe[:, :, None], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_pe, c, k_pe
+
+
+def _mla_out(p, o: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+
+
+def mla_forward(p, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor | None = None):
+    """Causal latent self-attention over the whole sequence (training,
+    forward, prefill). ``positions=None`` means ``arange(S)``. Returns
+    (out (B, S, D), c (B, S, r), k_pe (B, S, dr)): the latent is what
+    prefill caches."""
+    with _mla_span(x):
+        m, h, s = cfg.mla, cfg.n_heads, x.shape[1]
+        pos = positions if positions is not None else \
+            torch.arange(s, device=x.device)
+        q_nope, q_pe, c, k_pe = _mla_project(p, x, cfg, pos)
+        k_nope, v = torch.einsum("bsr,rhk->bshk", c, p["wkvb"].to(c.dtype)
+                                 ).split([m.qk_nope_head_dim, m.v_head_dim],
+                                         -1)
+        q = torch.cat([q_nope, q_pe], -1)
+        k = torch.cat([k_nope, k_pe[:, :, None].expand(-1, -1, h, -1)], -1)
+        o = streaming_attention(q, k, v, pos, pos,
+                                torch.ones(s, dtype=torch.bool,
+                                           device=x.device), causal=True)
+        return _mla_out(p, o), c, k_pe
+
+
+def mla_decode(p, x: torch.Tensor, cfg: ModelConfig, pos: int,
+               cache_c: torch.Tensor, cache_kpe: torch.Tensor):
+    """Single-token decode through the latent cache, wkvb absorbed. x:
+    (B, 1, D); cache_c (B, T, r), cache_kpe (B, T, dr). Writes the
+    token's latent into row ``pos`` in place, then, in float32: q_lat =
+    q_nope wkvb_kᵀ (B, H, r), scores (q_lat . c + q_pe . k_pe) scaled as
+    :func:`q_scale` says, masked to rows <= pos, o = (P c) wkvb_v.
+    Returns out (B, 1, D)."""
+    with _mla_span(x):
+        m = cfg.mla
+        at = torch.tensor([pos], device=x.device)
+        q_nope, q_pe, c, k_pe = _mla_project(p, x, cfg, at)
+        cache_c[:, pos] = c[:, 0].to(cache_c.dtype)
+        cache_kpe[:, pos] = k_pe[:, 0].to(cache_kpe.dtype)
+        w_uk, w_uv = p["wkvb"].float().split(
+            [m.qk_nope_head_dim, m.v_head_dim], -1)           # (r, H, .)
+        cf = cache_c.float()
+        q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_uk)
+        sc = torch.einsum("bhr,btr->bht", q_lat, cf) + torch.einsum(
+            "bhp,btp->bht", q_pe[:, 0].float(), cache_kpe.float())
+        sc = sc * q_scale(m.qk_head_dim, x.dtype)
+        valid = torch.arange(cf.shape[1], device=x.device) <= pos
+        pr = torch.softmax(torch.where(valid, sc, NEG_INF), dim=-1)
+        o = torch.einsum("bhr,rhv->bhv", torch.einsum(
+            "bht,btr->bhr", pr, cf), w_uv)
+        return _mla_out(p, o[:, None].to(x.dtype))

@@ -8,10 +8,12 @@ causal or bidirectional. The port holds one parameter set per layer
 layer list (Jamba's 1:7 interleave).
 
 Caches: attention keeps the stored-width keys and values (B, t_max, K,
-Dh), written in place by decode; Mamba keeps (conv (B, d_conv-1, di) in
-the activation dtype, h (B, di, N) float32); RWKV (shift (B, d), s (B,
-H, N, N) float32); a cross sublayer keeps its memory's keys and values
-(ck, cv), widened to the stored width once, at prefill.
+Dh), written in place by decode (latent attention its latent instead:
+c (B, t_max, r) and the rotated k_pe (B, t_max, dr)); Mamba keeps
+(conv (B, d_conv-1, di) in the activation dtype, h (B, di, N) float32);
+RWKV (shift (B, d), s (B, H, N, N) float32); a cross sublayer keeps
+its memory's keys and values (ck, cv), widened to the stored width once,
+at prefill.
 """
 from __future__ import annotations
 
@@ -92,7 +94,9 @@ def block_forward(p, x: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
     """Full-sequence mode. Returns (x, aux); ``positions=None`` means
     ``arange(S)`` (the kernel's route for causal attention)."""
     h = rmsnorm(x, p["norm_mix"], cfg.rms_eps)
-    if desc.kind == "attn":
+    if desc.kind == "attn" and cfg.mla is not None:
+        y = attn.mla_forward(p["mixer"], h, cfg, positions)[0]
+    elif desc.kind == "attn":
         y = attn.attn_forward(p["mixer"], h, cfg, positions,
                               causal=desc.causal, attention=attention)
     elif desc.kind == "mamba":
@@ -114,6 +118,8 @@ CACHE_AXES = {
     "v": ("batch", "kv_seq", "kv_stored", "head_dim"),
     "ck": ("batch", "kv_seq", "kv_stored", "head_dim"),
     "cv": ("batch", "kv_seq", "kv_stored", "head_dim"),
+    "c": ("batch", "kv_seq", None),
+    "kpe": ("batch", "kv_seq", None),
     "conv": ("batch", None, "d_inner"),
     "h": ("batch", "d_inner", None),
     "shift": ("batch", "d_model"),
@@ -133,7 +139,11 @@ def init_cache(cfg: ModelConfig, desc: LayerDesc, batch: int, t_max: int,
     def zeros(key, *shape, dt=dtype):
         return shd.zeros(shape, CACHE_AXES[key], dtype=dt, device=device)
 
-    if desc.kind == "attn":
+    if desc.kind == "attn" and cfg.mla is not None:
+        m = cfg.mla
+        c = {"c": zeros("c", batch, t_max, m.kv_lora_rank),
+             "kpe": zeros("kpe", batch, t_max, m.qk_rope_head_dim)}
+    elif desc.kind == "attn":
         c = {"k": zeros("k", batch, t_max, hkv, dh),
              "v": zeros("v", batch, t_max, hkv, dh)}
     elif desc.kind == "mamba":
@@ -158,11 +168,18 @@ def block_prefill(p, x: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
                   attention: str = "flash"):
     """Like block_forward but also returns the decode cache entry:
     attention's stored-width keys and values in rows 0..S-1 of (B, t_max,
-    K, Dh), or the recurrent state after S tokens."""
+    K, Dh) (latent attention's c and k_pe), or the recurrent state after
+    S tokens."""
     b, s, _ = x.shape
     h = rmsnorm(x, p["norm_mix"], cfg.rms_eps)
     cache: dict = {}
-    if desc.kind == "attn":
+    if desc.kind == "attn" and cfg.mla is not None:
+        y, c, k_pe = attn.mla_forward(p["mixer"], h, cfg, positions)
+        cache = init_cache(cfg, dataclasses.replace(desc, cross=False), b,
+                           t_max, 0, c.dtype, x.device)
+        cache["c"][:, :s] = c
+        cache["kpe"][:, :s] = k_pe
+    elif desc.kind == "attn":
         q, k, v = attn.project_qkv(p["mixer"], h, h, cfg)
         pos = positions if positions is not None else _arange(x)
         q = attn.rope(q, pos, cfg.rope_theta)
@@ -195,7 +212,10 @@ def block_decode(p, x: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
     row ``pos`` is written in place, a recurrent state replaced in the
     same dict."""
     h = rmsnorm(x, p["norm_mix"], cfg.rms_eps)
-    if desc.kind == "attn":
+    if desc.kind == "attn" and cfg.mla is not None:
+        y = attn.mla_decode(p["mixer"], h, cfg, pos, cache["c"],
+                            cache["kpe"])
+    elif desc.kind == "attn":
         y, _, _ = attn.attn_decode(p["mixer"], h, cfg, pos, cache["k"],
                                    cache["v"])
     elif desc.kind == "mamba":

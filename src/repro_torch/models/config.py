@@ -23,6 +23,31 @@ class MoeConfig:
     # "gather": take/segment_sum dispatch (beyond-paper optimization).
     dispatch: Literal["einsum", "gather"] = "einsum"
     router_aux_weight: float = 0.01
+    # Fields the JAX package lacks (DeepSeek-V3's router; their
+    # defaults are the softmax router above). "sigmoid": sigmoid scores,
+    # the top-k chosen by score plus a per-layer balancing bias (state,
+    # not a parameter), weights from the scores alone, DeepSeek-V3's
+    # sequence-wise balance loss.
+    scoring: Literal["softmax", "sigmoid"] = "softmax"
+    routed_scale: float = 1.0          # the routed weights' factor
+    bias_rate: float = 0.0             # the bias's step a train step
+
+
+@dataclasses.dataclass(frozen=True)
+class MlaConfig:
+    """Multi-head latent attention (DeepSeek-V2/V3) with full-rank
+    queries: keys and values come up from a normed latent of
+    ``kv_lora_rank`` a token, and a rotary key part of ``qk_rope_head_dim``
+    is shared by every head."""
+
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +107,11 @@ class ModelConfig:
     remat: bool = True
     z_loss: float = 1e-4
     tie_embeddings: bool = False
+    # Fields the JAX package lacks: latent attention in every attention
+    # layer, and the leading layers whose MLP is dense (of width d_ff)
+    # in a MoE model.
+    mla: MlaConfig | None = None
+    first_k_dense: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -132,7 +162,7 @@ class ModelConfig:
         return tuple(self.pattern) * reps
 
     def is_moe_layer(self, idx: int) -> bool:
-        if self.moe is None:
+        if self.moe is None or idx < self.first_k_dense:
             return False
         return (idx % self.moe_every) == (self.moe_every - 1)
 
@@ -144,7 +174,15 @@ class ModelConfig:
         kinds = c.block_kinds()
         for i, kind in enumerate(kinds):
             total += d  # pre-norm scale
-            if kind == "attn":
+            if kind == "attn" and c.mla is not None:
+                m = c.mla
+                total += d * c.n_heads * m.qk_head_dim        # wq
+                total += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                total += m.kv_lora_rank                        # kv_norm
+                total += m.kv_lora_rank * c.n_heads * (
+                    m.qk_nope_head_dim + m.v_head_dim)         # wkvb
+                total += c.n_heads * m.v_head_dim * d          # wo
+            elif kind == "attn":
                 total += d * (c.n_heads * dh) + 2 * d * (c.n_kv_heads * dh)
                 total += (c.n_heads * dh) * d
                 if c.qkv_bias:

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding as shd
 from repro_torch.models import params as prm
@@ -69,6 +70,9 @@ def _period_layout(cfg: ModelConfig) -> tuple[LayerDesc, ...]:
     if cfg.moe is not None:
         # MoE cadence must align with the period.
         period = math.lcm(period, cfg.moe_every)
+    if cfg.first_k_dense:
+        # Leading dense layers break the period: one of every layer.
+        period = cfg.n_layers
     if cfg.n_layers % period:
         raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a "
                          f"multiple of the period {period}")
@@ -170,11 +174,43 @@ class LM(nn.Module):
                 self.register_parameter(name, nn.Parameter(
                     torch.empty(self.cfg.d_model, device=dev, dtype=pdt),
                     requires_grad=False))
+        mc = self.cfg.moe
+        for p in self.routers():
+            # The sigmoid router's balancing bias and the step's loads
+            # (models/moe.py): state, no gradient, not AdamW's.
+            for name in ("router_bias", "router_load"):
+                p.register_buffer(name, torch.zeros(
+                    mc.n_experts, device=dev, dtype=torch.float32))
         if dev.type == "meta":
             return              # shapes only: nothing to draw
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(seed)
         prm.init(self, specs, generator)
+
+    def routers(self) -> list:
+        """The MLP parameters of every decoder layer whose router keeps
+        a balancing bias (``scoring="sigmoid"``)."""
+        mc = self.cfg.moe
+        if mc is None or mc.scoring != "sigmoid":
+            return []
+        return [p["mlp"] for p, d in zip(self.decoder, self.descs) if d.moe]
+
+    @torch.no_grad()
+    def update_router_bias(self) -> None:
+        """Once a train step, after the optimizer: each router's bias b_i
+        += bias_rate x sign(mean load - load_i), the loads its forwards
+        counted since the last update (before capacity drops), which are
+        then zeroed (DeepSeek-V3 §2.1.2). Adds sum |b| over the layers to
+        the counter ``moe.bias_abs``."""
+        routers = self.routers()
+        for p in routers:
+            load = p["router_load"]
+            p["router_bias"].add_(torch.sign(load.mean() - load),
+                                  alpha=self.cfg.moe.bias_rate)
+            load.zero_()
+        if routers and obs.enabled():
+            obs.counter("moe.bias_abs").add(
+                sum(p["router_bias"].abs().sum() for p in routers))
 
     def all_stages(self) -> list[Stage]:
         """The encoder (enc-dec only), then the decoder."""
@@ -358,11 +394,14 @@ class LM(nn.Module):
     @_serving
     def prefill(self, tokens: torch.Tensor, t_max: int, *,
                 frontend: torch.Tensor | None = None,
-                attention: str = "flash", rwkv_chunk: int | None = None):
+                attention: str = "flash", rwkv_chunk: int | None = None,
+                all_positions: bool = False):
         """Run the prompt (behind the VLM prefix); returns
-        (last-position logits (B, 1, V), caches). ``t_max`` counts the
-        prefix's positions too. Causal self-attention goes through the
-        flash kernel unless ``attention="plain"``."""
+        (last-position logits (B, 1, V), caches), or with
+        ``all_positions`` the logits at every text position (B, S, V).
+        ``t_max`` counts the prefix's positions too. Causal
+        self-attention goes through the flash kernel unless
+        ``attention="plain"``."""
         cfg = self.cfg
         memory = self._encode(frontend)
         x, _ = self._embed_inputs(tokens, frontend)
@@ -372,7 +411,8 @@ class LM(nn.Module):
                                     memory=memory, rwkv_chunk=rwkv_chunk,
                                     attention=attention)
             caches.append(c)
-        x = rmsnorm(x[:, -1:], self.final_norm, cfg.rms_eps)
+        x = x[:, self.n_front:] if all_positions else x[:, -1:]
+        x = rmsnorm(x, self.final_norm, cfg.rms_eps)
         return logits_out(self.embed, x, cfg), caches
 
     @_serving

@@ -14,7 +14,13 @@ top_k * cf / E) + 1, at most S. The experts of a layer are stacked
     bits of a sum, vary from run to run).
 
 Routing: float32 softmax over the expert logits, top-k, renormalised
-weights, and the Switch load-balancing loss. Among equal probabilities
+weights, and the Switch load-balancing loss; or (``scoring="sigmoid"``,
+DeepSeek-V3's router, a field the JAX package lacks) float32 sigmoid
+scores, the top-k chosen by score plus the layer's balancing bias (a
+buffer ``router_bias``, state and not a parameter, that the train step
+moves after the optimizer, ``LM.update_router_bias``), the weights
+renormalised from the scores alone and scaled by ``routed_scale``, and
+the sequence-wise balance loss. Among equal probabilities
 the lower expert comes first, as ``jax.lax.top_k`` orders them: a
 stable descending sort, since ``torch.topk`` promises no order among
 ties. The reference's ``constrain`` calls stand where it puts them
@@ -26,8 +32,12 @@ alone) and the combine's output in the residual's placement.
 With a telemetry registry current (:mod:`repro_torch.obs`) a forward
 counts its token choices (``moe.routed``), those past capacity
 (``moe.dropped``, added up on the device) and the capacity slots it
-offers (``moe.slots``, groups x E x C); a layer checkpoint's
-recomputation does not count again.
+offers (``moe.slots``, groups x E x C), and the busiest expert's
+token choices before the drops (``moe.load_max``, one a layer a call);
+a layer checkpoint's recomputation does not count again. Under a train
+step's forward a layer with a balancing bias adds each expert's token
+choices, before the drops, to its buffer ``router_load``, once a step
+as well.
 """
 from __future__ import annotations
 
@@ -78,6 +88,46 @@ def _routing(router_logits: torch.Tensor, mc: MoeConfig):
     p = probs.mean(dim=(0, 1))
     aux = e * torch.sum(f * p) * mc.router_aux_weight
     return top_w, top_e, aux
+
+
+def _sigmoid_routing(router_logits: torch.Tensor, mc: MoeConfig,
+                     bias: torch.Tensor | None):
+    """Top-k routing per token as :func:`_routing` returns it, by
+    DeepSeek-V3's router (``noaux_tc`` with one group): scores s =
+    sigmoid(logits) in float32; the top-k by s + bias (the lower expert
+    first among equals); weights s[top] / (sum s[top] + 1e-20) x
+    ``routed_scale``; the sequence-wise balance loss over the scores
+    normalised across all experts."""
+    s = torch.sigmoid(router_logits.float())
+    _, top_e = top_k(s if bias is None else s + bias, mc.top_k)
+    top_s = torch.gather(s, -1, top_e)
+    top_w = top_s / (top_s.sum(-1, keepdim=True) + 1e-20) * mc.routed_scale
+    probs = s / s.sum(-1, keepdim=True)
+    e = s.shape[-1]
+    # Sequence-wise (DeepSeek-V3 §2.1.2): per sequence f_i = E / (k S)
+    # x the choices of expert i and P_i the mean of its normalised score;
+    # alpha sum_i f_i P_i, averaged over the sequences.
+    f = F.one_hot(top_e, e).float().sum(dim=(1, 2)) * \
+        (e / (top_e.shape[1] * top_e.shape[2]))
+    aux = (f * probs.mean(dim=1)).sum(-1).mean() * mc.router_aux_weight
+    return top_w, top_e, aux
+
+
+def _loads(p, top_e: torch.Tensor, e: int) -> None:
+    """Each expert's token choices of this call, before the drops: added
+    to the layer's ``router_load`` under a train step's forward (gradients
+    on; not a checkpoint's recomputation) and, the busiest expert's, to
+    ``moe.load_max`` where telemetry is on."""
+    train = "router_load" in p and torch.is_grad_enabled()
+    if not (train or obs.enabled()) or \
+            torch._C._current_graph_task_id() != -1:
+        return
+    if isinstance(top_e, DTensor):
+        top_e = top_e.to_local()
+    load = torch.bincount(top_e.reshape(-1), minlength=e)
+    if train:
+        p["router_load"].add_(load)
+    obs.counter("moe.load_max").add(load.max())
 
 
 def _capacity(s: int, mc: MoeConfig, override: int | None = None) -> int:
@@ -230,7 +280,12 @@ def moe_mlp(p, x: torch.Tensor, cfg: ModelConfig,
         if mc.n_shared else None
     logits = constrain(x @ p["router"].to(x.dtype),
                        ("batch", None, "experts"))          # (B,S,E)
-    top_w, top_e, aux = _routing(logits, mc)
+    if mc.scoring == "sigmoid":
+        top_w, top_e, aux = _sigmoid_routing(
+            logits, mc, p["router_bias"] if "router_bias" in p else None)
+    else:
+        top_w, top_e, aux = _routing(logits, mc)
+    _loads(p, top_e, mc.n_experts)
     if mc.dispatch == "einsum":
         y = _dispatch_einsum(p, x, top_w, top_e, mc, cfg.mlp, capacity)
     else:

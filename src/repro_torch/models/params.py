@@ -99,7 +99,8 @@ class Params(nn.Module):
         return getattr(self, name)
 
     def __contains__(self, name: str) -> bool:
-        return name in self._parameters or name in self._modules
+        return name in self._parameters or name in self._modules or \
+            name in self._buffers
 
 
 def init(module: nn.Module, specs: dict,

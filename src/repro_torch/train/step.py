@@ -25,7 +25,9 @@ loss (aux included), ``z_loss`` and ``aux`` are 0.
 With a telemetry registry current (:mod:`repro_torch.obs`) the step's
 parts are spans with device intervals on the model's device:
 ``train.forward`` and ``train.backward`` once a microbatch,
-``train.optimizer`` once a step.
+``train.optimizer`` once a step. After the optimizer each sigmoid
+router's balancing bias moves by the step's loads
+(``LM.update_router_bias``).
 """
 from __future__ import annotations
 
@@ -145,6 +147,7 @@ def make_train_step(model: LM, opt: AdamW, microbatches: int = 1,
             metrics = {"ce": loss, "z_loss": zero, "aux": zero}
         with obs.span("train.optimizer", device=model.device):
             opt.step(grads, opt_state, own)
+            model.update_router_bias()
         mark("optimizer")
         metrics = dict(metrics, loss=loss,
                        step=opt_state["count"].float())
@@ -197,7 +200,7 @@ def gather_for_compute(p, axes=FSDP_AXES):
     if isinstance(p, torch.Tensor):
         return p
     return {k: gather_for_compute(v, axes) for k, v in itertools.chain(
-        p._parameters.items(), p._modules.items())}
+        p._parameters.items(), p._buffers.items(), p._modules.items())}
 
 
 def distribute_model(model: LM, mesh, p_shard: dict) -> None:

@@ -67,12 +67,48 @@ def both(a, dtype):
 
 # -- configs -----------------------------------------------------------------
 
+def _port_only(mine: dict, theirs: dict) -> dict:
+    """The fields of a port config's ``asdict`` that the JAX package's
+    lacks (latent attention, leading dense layers, the sigmoid router's),
+    nested configs included, each with its value."""
+    out = {}
+    for k, v in mine.items():
+        if k not in theirs:
+            out[k] = v
+        elif isinstance(v, dict) and isinstance(theirs[k], dict):
+            out.update({f"{k}.{n}": w for n, w in
+                        _port_only(v, theirs[k]).items()})
+    return out
+
+
+def _shared(mine: dict, theirs: dict) -> dict:
+    """``mine`` without the fields that the JAX package's lacks."""
+    return {k: _shared(v, theirs[k]) if isinstance(v, dict) and
+            isinstance(theirs[k], dict) else v
+            for k, v in mine.items() if k in theirs}
+
+
+# The port's own fields at their defaults: every config of the JAX
+# package's list leaves them so.
+PORT_DEFAULTS = {"mla": None, "first_k_dense": 0, "moe.scoring": "softmax",
+                 "moe.routed_scale": 1.0, "moe.bias_rate": 0.0}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_are_the_references(arch):
+    """Every field of the JAX package's config equal; the fields only the
+    port has (PORT_DEFAULTS) at their defaults."""
     assert ARCHS == R_ARCHS
     for mine, ref in ((get_config(arch), r_get_config(arch)),
                       (get_reduced(arch), r_get_reduced(arch))):
-        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        m, r = dataclasses.asdict(mine), dataclasses.asdict(ref)
+        assert _shared(m, r) == r
+        extra = _port_only(m, r)
+        assert extra == {k: v for k, v in PORT_DEFAULTS.items()
+                         if k in extra}
+        assert set(extra) - {"mla", "first_k_dense"} == (
+            {k for k in PORT_DEFAULTS if k.startswith("moe.")}
+            if mine.moe is not None else set())
         assert mine.param_count() == ref.param_count()
         assert mine.head_layout() == ref.head_layout()
 

@@ -482,7 +482,8 @@ def test_step_spans_and_moe_counters(monkeypatch, remat, dispatch,
     """Under a registry a step is one ``train.forward`` and one
     ``train.backward`` a microbatch and one ``train.optimizer``; the MoE
     counters equal a direct count of ``_positions``' ``keep`` in the
-    same forward, once, though the layer checkpoint's recomputation
+    same forward (``moe.load_max`` the busiest expert's token choices of
+    each layer), once, though the layer checkpoint's recomputation
     routes again; the optimizer counts every parameter on the plain
     route and none on the kernel's; with the disabled registry nothing
     is counted."""
@@ -503,7 +504,7 @@ def test_step_spans_and_moe_counters(monkeypatch, remat, dispatch,
 
     def spy(top_e, e, c):
         pos, keep = positions(top_e, e, c)
-        keeps.append((keep.clone(), e, c))
+        keeps.append((keep.clone(), e, c, top_e.clone()))
         return pos, keep
 
     def untouched(name):
@@ -513,9 +514,14 @@ def test_step_spans_and_moe_counters(monkeypatch, remat, dispatch,
     with torch.no_grad(), monkeypatch.context() as mp:
         mp.setattr(obs, "counter", untouched)
         m.loss(tb, attention="plain")
-    want = {"moe.routed": sum(k.numel() for k, _, _ in keeps),
-            "moe.dropped": sum(int((~k).sum()) for k, _, _ in keeps),
-            "moe.slots": sum(k.shape[0] * e * c for k, e, c in keeps)}
+    want = {"moe.routed": sum(k.numel() for k, _, _, _ in keeps),
+            "moe.dropped": sum(int((~k).sum()) for k, _, _, _ in keeps),
+            "moe.slots": sum(k.shape[0] * e * c for k, e, c, _ in keeps),
+            # A layer call's busiest expert, a microbatch's rows a call.
+            "moe.load_max": sum(
+                int(torch.bincount(rows.reshape(-1), minlength=e).max())
+                for _, e, _, top_e in keeps
+                for rows in top_e.chunk(microbatches))}
     assert len(keeps) == cfg.n_layers and want["moe.dropped"] > 0
     keeps.clear()
     opt = adamw.AdamW(learning_rate=1e-3)
