@@ -212,6 +212,21 @@ Phases, each printing one JSON line:
                medians, L2 flushed, of the sums of squares, the updates,
                AdamW.step whole and the plain step, beside the 32 bytes a
                parameter bound; one step's launches and counters
+  positions    the MoE dispatch's slot-position kernel
+               (csrc/moe_positions.cu), in a process of its own
+               (``chip_smoke.py --positions``, also alone), at the
+               benchmark cells' shapes (POSITIONS): pos and keep against
+               the plain version, exactly (else a failure); CUDA-event
+               medians, L2 flushed, of the kernel, of ``_positions`` on
+               top-k's indices as the model passes them, of an empty
+               kernel of the same grid and of the plain version, beside
+               the 17 bytes an entry bound; launches a call and the
+               counters; the plain version reworked without a kernel
+               (PLAIN_REWORKS: a bool one-hot scanned in int32 along its
+               innermost or its outer dim), timed and checked beside it;
+               ``_positions`` on DTensors of a one-rank NCCL
+               mesh (sharded on B, replicated: the kernel; sharded on S:
+               refused)
   mla          (``chip_smoke.py --mla`` alone) moonlight-16b-a3b's latent
                attention at its published widths: the dense first layer
                and one MoE layer (MLA_SMOKE), weights drawn at the
@@ -412,6 +427,42 @@ DIST_TIMEOUT_S = 600
 ADAMW = {"arch": "deepseek-moe-16b", "n_layers": 4, "seed": 0,
          "iters": 10, "plain_iters": 3, "timeout_s": 300}
 ADAMW_TOL = 1e-6
+# The positions phase: csrc/moe_positions.cu at (B, S, k) of the
+# benchmark's train-4k, train-8k and prefill cells, E = 64, capacity
+# factor 1.25. Its bytes: each entry read once (8 B) and written once
+# (8 B of pos, 1 B of keep), 17 B.
+POSITIONS = {"shapes": [(1, 4096, 6), (1, 8192, 6), (4, 1024, 6)],
+             "experts": 64, "iters": 200, "plain_iters": 20, "seed": 0,
+             "timeout_s": 300}
+
+
+def positions_inner(top_e, e: int, c: int):
+    """The plain version reworked: a bool one-hot laid out (B, E, S*k)
+    and scanned in int32 along its innermost dim, each choice's own
+    expert's count read back: seven launches of PyTorch's own."""
+    b, s, k = top_e.shape
+    flat = top_e.reshape(b, 1, s * k)
+    hit = flat == torch.arange(e, device=top_e.device)[:, None]
+    upto = torch.cumsum(hit, dim=-1, dtype=torch.int32)     # (B,E,S*k)
+    pos = (torch.gather(upto, 1, flat) - 1).reshape(b, s, k).long()
+    return pos, pos < c
+
+
+def positions_outer(top_e, e: int, c: int):
+    """The plain version with the one-hot in int32 (bool, then an int32
+    scan) and its layout, (B, S*k, E), scanned along the outer dim."""
+    b, s, k = top_e.shape
+    flat = top_e.reshape(b, s * k, 1)
+    hit = flat == torch.arange(e, device=top_e.device)
+    upto = torch.cumsum(hit, dim=1, dtype=torch.int32)      # (B,S*k,E)
+    pos = (torch.gather(upto, -1, flat) - 1).reshape(b, s, k).long()
+    return pos, pos < c
+
+
+# The positions phase times these beside the kernel: whether the plain
+# version, reworked in place, would do as well.
+PLAIN_REWORKS = {"inner_int32": positions_inner,
+                 "outer_int32": positions_outer}
 # The mla phase: moonlight-16b-a3b's dense first layer and one MoE layer
 # at published widths; the forward at ``seq`` tokens, a prefill of
 # ``prompt`` and one decode step (each within MLA_TOL of the reference's
@@ -2164,6 +2215,12 @@ def train_family_run(arch: str, dev) -> dict:
         ev[2].record()
         torch.cuda.synchronize()
     launches = {name: kern.launches for name, kern in kernels.items()}
+    # One slot-position launch a MoE layer a forward: the train steps'
+    # (warm-up, timed, profiled), again in each layer checkpoint's
+    # recomputation, and the two evals'.
+    n_moe = sum(d.moe for d in model.descs)
+    steps_run = n_steps + 1 + bool(run.get("profile"))
+    want_positions = n_moe * ((2 if cfg.remat else 1) * steps_run + 2)
     peak = torch.cuda.max_memory_allocated()
     loss_flash, loss_plain = float(loss_flash), float(loss_plain)
     eval_rel = abs(loss_flash - loss_plain) / abs(loss_plain)
@@ -2202,6 +2259,7 @@ def train_family_run(arch: str, dev) -> dict:
         "eval_flash_ms": ev[0].elapsed_time(ev[1]),
         "eval_plain_ms": ev[1].elapsed_time(ev[2]),
         "launches": launches, "causal_attention_layers": want_flash,
+        "moe_layers": n_moe, "positions_launches_want": want_positions,
         "route_divergence": div, "attn_tol": SERVE_ATTN_TOL["bfloat16"],
         "moe_product_runs": products}
     if s == SHAPES["train_4k"].seq_len:
@@ -2220,6 +2278,12 @@ def train_family_run(arch: str, dev) -> dict:
                              f"{launches['flash_attention']} flash launches "
                              f"in one eval, {want_flash} causal attention "
                              "layers")
+    if launches["moe_positions"] != want_positions:
+        raise AssertionError(f"train_families {arch}: "
+                             f"{launches['moe_positions']} slot-position "
+                             f"launches, {want_positions} wanted "
+                             f"({n_moe} MoE layers, {steps_run} steps, "
+                             f"remat {cfg.remat}, 2 evals)")
     if not eval_rel <= TRAIN_EVAL_TOL:
         raise AssertionError(f"train_families {arch}: flash eval loss "
                              f"{loss_flash} vs plain {loss_plain} "
@@ -2651,17 +2715,16 @@ def dist_main(part: str) -> int:
     return 0
 
 
-def phase_adamw() -> dict:
-    """The adamw phase in a process of its own (``chip_smoke.py
-    --adamw``, its result as its last line): its 44 GB of state freed at
-    exit."""
+def phase_child(flag: str, timeout_s: float) -> dict:
+    """A phase in a process of its own (``chip_smoke.py <flag>``, its
+    result as its last line): the adamw phase's 44 GB of state freed at
+    exit, the positions phase's process group gone with it."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--adamw"],
-        capture_output=True, text=True, timeout=ADAMW["timeout_s"],
-        cwd=ROOT)
+        [sys.executable, os.path.abspath(__file__), flag],
+        capture_output=True, text=True, timeout=timeout_s, cwd=ROOT)
     if proc.returncode != 0:
-        raise AssertionError(f"adamw: exit {proc.returncode}\n"
+        raise AssertionError(f"{flag}: exit {proc.returncode}\n"
                              f"{proc.stderr[-6000:]}")
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     res["process_s"] = time.perf_counter() - t0
@@ -2801,6 +2864,131 @@ def adamw_main() -> int:
     return 0
 
 
+def positions_run(dev) -> dict:
+    """The positions phase (module docstring) at POSITIONS' shapes, each
+    on one draw of every token's 6 distinct experts of 64, as top-k
+    gives them; raises where the kernel's pos or keep differ from the
+    plain version's, where a call launches other than once or where the
+    counters are not the kernel's."""
+    from repro_torch import obs
+    from repro_torch.kernels._launch import launch_floor
+    from repro_torch.kernels.moe_positions import kernel as positions_k
+    from repro_torch.models import moe
+
+    e = POSITIONS["experts"]
+    gen = torch.Generator(device=dev).manual_seed(POSITIONS["seed"])
+    rows = []
+    for b, s, k in POSITIONS["shapes"]:
+        c = max(1, min(s, int(s * k * 1.25 / e) + 1))
+        view = torch.argsort(torch.rand((b, s, e), generator=gen,
+                                        device=dev), dim=-1)[..., :k]
+        top_e = view.contiguous()
+        before = positions_k.positions.launches
+        tel = obs.Telemetry()
+        with obs.use(tel):
+            pos, keep = moe._positions(view, e, c)
+        launches = positions_k.positions.launches - before
+        want_pos, want_keep = moe._positions_plain(top_e, e, c)
+        exact = torch.equal(pos, want_pos) and torch.equal(keep, want_keep)
+        counters = tel.counters()
+        n = top_e.numel()
+        if not exact or launches != 1 or counters != {
+                "moe.positions_kernel": n, "moe.positions_plain": 0}:
+            raise AssertionError(f"positions {(b, s, k)}: exact {exact}, "
+                                 f"{launches} launches, {counters}")
+        threads = positions_k.threads_for(s * k)
+        grid = (b * -(-s * k // (threads * positions_k.ITEMS)), threads)
+        iters = POSITIONS["iters"]
+        ms = {"ms": time_cuda(lambda: positions_k.positions(top_e, e, c),
+                              iters=iters),
+              "path_ms": time_cuda(lambda: moe._positions(view, e, c),
+                                   iters=iters),
+              "floor_ms": time_cuda(lambda: launch_floor(dev, *grid),
+                                    iters=iters),
+              "plain_ms": time_cuda(
+                  lambda: moe._positions_plain(view, e, c),
+                  iters=POSITIONS["plain_iters"])}
+        reworks = {name: {
+            "ms": time_cuda(lambda: fn(view, e, c),
+                            iters=POSITIONS["plain_iters"]),
+            "exact": all(torch.equal(g, w) for g, w in zip(
+                fn(view, e, c), (want_pos, want_keep)))}
+            for name, fn in PLAIN_REWORKS.items()}
+        bound = 17 * n / HBM_BYTES_PER_S * 1e3
+        rows.append({"shape": [b, s, k], "experts": e, "capacity": c,
+                     "entries": n, "grid": list(grid), **ms,
+                     "bound_ms": bound, "bound_by": "bytes",
+                     "share_of_bound": bound / ms["ms"],
+                     "drops": int((~keep).sum()), "exact": exact,
+                     "launches_per_call": launches,
+                     "counters_per_call": counters,
+                     "plain_reworks": reworks})
+    return {"shapes": rows, "mesh": positions_mesh_check(dev)}
+
+
+def positions_mesh_check(dev) -> dict:
+    """``_positions`` on DTensors of a one-rank NCCL mesh: sharded on B
+    and replicated, the kernel on the local shard (equal to the plain
+    version, else a failure); sharded on S, refused."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels.moe_positions import kernel as positions_k
+    from repro_torch.models import moe
+
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,))
+        top_e = torch.argsort(torch.rand((4, 1024, 64), device=dev),
+                              dim=-1)[..., :6]
+        want = moe._positions_plain(top_e, 64, 121)
+        before = positions_k.positions.launches
+        out = {}
+        for name, place in (("batch", Shard(0)), ("replicated", Replicate())):
+            got = moe._positions(distribute_tensor(top_e, mesh, [place]),
+                                 64, 121)
+            out[name] = all(torch.equal(g.to_local(), w)
+                            for g, w in zip(got, want))
+        out["launches"] = positions_k.positions.launches - before
+        try:
+            moe._positions(distribute_tensor(top_e, mesh, [Shard(1)]), 64,
+                           121)
+            out["seq_refused"] = False
+        except ValueError:
+            out["seq_refused"] = True
+    finally:
+        dist.destroy_process_group()
+    if not (out["batch"] and out["replicated"] and out["seq_refused"] and
+            out["launches"] == 2):
+        raise AssertionError(f"positions on a mesh: {out}")
+    return out
+
+
+def positions_main() -> int:
+    """``--positions``: the positions phase alone (with the build), the
+    card's name and power limit, and its JSON result last."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+
+    logs = build.build()["logs"].get("moe_positions", "")
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    res = positions_run(resolve_device())
+    res["nvidia_smi"] = smi
+    res["ptxas"] = [ln.strip() for ln in logs.splitlines() if any(
+        w in ln for w in ("Compiling entry function", "registers", "spill"))]
+    print(json.dumps(res), flush=True)
+    return 0
+
+
 def mla_run(dev) -> dict:
     """The mla phase (module docstring): the port's moonlight-16b-a3b at
     MLA_SMOKE's depth against portbench/reference/mla_moe_lm.py."""
@@ -2913,13 +3101,15 @@ def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels.adamw import kernel as adamw_k
     from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.moe_positions import kernel as positions_k
     from repro_torch.kernels.pack import kernel as pack_k
     from repro_torch.kernels.spmv import kernel as spmv_k
 
     return {"ell_spmv": spmv_k.ell_spmv, "pack": pack_k.pack,
             "flash_attention": fa_k.flash_attention,
             "ell_onehot": spmv_k.ell_onehot,
-            "adamw_sumsq": adamw_k.sumsq, "adamw_update": adamw_k.update}
+            "adamw_sumsq": adamw_k.sumsq, "adamw_update": adamw_k.update,
+            "moe_positions": positions_k.positions}
 
 
 def phase_distributed(A, parts, x, dev) -> dict:
@@ -4055,8 +4245,10 @@ def main() -> int:
     emit("train", **train)
     torch.cuda.empty_cache()
     train_families = phase_train_families()
-    adamw = phase_adamw()
+    adamw = phase_child("--adamw", ADAMW["timeout_s"])
     emit("adamw", **adamw)
+    positions = phase_child("--positions", POSITIONS["timeout_s"])
+    emit("positions", **positions)
     phase_dist()
     shard = phase_shard()
     emit("shard", **shard)
@@ -4076,7 +4268,7 @@ def main() -> int:
                    f["launches"][name]
                    for f in train_families.values() if "launches" in f)
                    for name in ("flash_attention", "adamw_sumsq",
-                                "adamw_update")},
+                                "adamw_update", "moe_positions")},
                "shard": shard["launches"]}
 
     def entry(name, source, replaces, calls, path, summed=(), **extra):
@@ -4144,6 +4336,21 @@ def main() -> int:
          "bound_by": "bytes", "sumsq_ms": adamw["sumsq_ms"],
          "update_ms": adamw["update_ms"],
          "kernel_vs_plain_rel": adamw["kernel_vs_plain_rel"]},
+        {"name": "moe_positions", "route": "cuda",
+         "source": "src/repro_torch/csrc/moe_positions.cu",
+         "replaces": "none: the JAX package's _positions is a jnp.cumsum "
+                     "over a one-hot that XLA fuses",
+         "path": "train_families", "launches": sum(
+             f["launches"]["moe_positions"]
+             for f in train_families.values() if "launches" in f),
+         "launches_by_path": {p: n["moe_positions"]
+                              for p, n in by_path.items()
+                              if "moe_positions" in n},
+         "shapes": [{k: r[k] for k in ("shape", "ms", "path_ms", "floor_ms",
+                                       "plain_ms", "plain_reworks",
+                                       "bound_ms")}
+                    for r in positions["shapes"]],
+         "library_ms": None, "bound_by": "bytes"},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4182,6 +4389,8 @@ if __name__ == "__main__":
         sys.exit(adamw_main())
     if sys.argv[1:] == ["--mla"]:
         sys.exit(mla_main())
+    if sys.argv[1:] == ["--positions"]:
+        sys.exit(positions_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--graph-trace":
         sys.exit(graph_trace_main(int(sys.argv[2])))
     sys.exit(main())

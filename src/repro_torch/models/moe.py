@@ -38,6 +38,14 @@ a layer checkpoint's recomputation does not count again. Under a train
 step's forward a layer with a balancing bias adds each expert's token
 choices, before the drops, to its buffer ``router_load``, once a step
 as well.
+
+Slot positions (``_positions``, shared by both dispatches): on a CUDA
+device the hand-written kernel of ``kernels/moe_positions`` gives them,
+one launch a call, exactly the plain version's; elsewhere the plain
+version (``_positions_plain``), a cumsum over an int64 one-hot. With a
+registry current the choices each route placed are counted as
+``moe.positions_kernel`` and ``moe.positions_plain``, where
+``moe.routed`` is.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ from torch.distributed.tensor import DTensor, Partial, Shard
 from repro_torch import obs
 from repro_torch.dist.sharding import (constrain, contiguous_grad, current,
                                       run_local_sum, spec_entries, zeros)
+from repro_torch.kernels.moe_positions import kernel as positions_k
 from repro_torch.models.config import ModelConfig, MoeConfig
 from repro_torch.models.layers import mlp, mlp_specs
 from repro_torch.models.params import Spec, stack_specs
@@ -138,7 +147,7 @@ def _capacity(s: int, mc: MoeConfig, override: int | None = None) -> int:
     return max(1, min(s, c))
 
 
-def _positions(top_e: torch.Tensor, e: int, c: int):
+def _positions_plain(top_e: torch.Tensor, e: int, c: int):
     """Slot positions within each (group, expert) capacity buffer: a
     cumsum over the flattened (S*k) order, so among one token's k
     choices the first takes a slot first.
@@ -153,11 +162,50 @@ def _positions(top_e: torch.Tensor, e: int, c: int):
     return pos, pos < c
 
 
+def _positions_local(top_e: DTensor, e: int, c: int):
+    """The kernel on each device's shard of ``top_e``, whose groups are
+    whole on every device (sharded on B or replicated), as DTensors of
+    ``top_e``'s placements."""
+    places = tuple(top_e.placements)
+    if not all(p.is_replicate() or p.is_shard(0) for p in places):
+        raise ValueError(f"moe positions: the (S, k) choices of a group "
+                         f"must be whole on each device, got {places}")
+    # A shard of whole groups has the whole tensor's contiguous strides.
+    return tuple(DTensor.from_local(t, top_e.device_mesh, places,
+                                    run_check=False, shape=top_e.shape,
+                                    stride=t.stride())
+                 for t in positions_k.positions(
+                     top_e.to_local().contiguous(), e, c))
+
+
+def _positions(top_e: torch.Tensor, e: int, c: int):
+    """:func:`_positions_plain`'s (pos, keep): on a CUDA device from the
+    kernel (a DTensor's from its local shard), elsewhere from the plain
+    version."""
+    on_card = top_e.device.type == "cuda"
+    if not on_card:
+        pos, keep = _positions_plain(top_e, e, c)
+    elif isinstance(top_e, DTensor):
+        pos, keep = _positions_local(top_e, e, c)
+    else:
+        pos, keep = positions_k.positions(top_e.contiguous(), e, c)
+    if _counting():
+        n = (keep.to_local() if isinstance(keep, DTensor) else keep).numel()
+        obs.counter("moe.positions_kernel").add(n if on_card else 0)
+        obs.counter("moe.positions_plain").add(0 if on_card else n)
+    return pos, keep
+
+
+def _counting() -> bool:
+    """Telemetry is on and this is not a layer checkpoint's recomputation
+    (which runs inside the backward, in an autograd graph task)."""
+    return obs.enabled() and torch._C._current_graph_task_id() == -1
+
+
 def _count(keep: torch.Tensor, e: int, c: int) -> None:
-    """The routing's counters, where telemetry is on and this is not a
-    checkpoint's recomputation (which runs inside the backward, in an
-    autograd graph task). On a mesh a process counts its own shard."""
-    if not obs.enabled() or torch._C._current_graph_task_id() != -1:
+    """The routing's counters, where :func:`_counting`. On a mesh a
+    process counts its own shard."""
+    if not _counting():
         return
     if isinstance(keep, DTensor):
         keep = keep.to_local()

@@ -1227,3 +1227,126 @@ def test_adamw_sumsq_is_deterministic_and_exact(dev, gdt):
     for got, w in zip(sums, want):
         assert abs(float(got) - w) <= 1e-6 * w
     assert torch.equal(total, sum(sums))
+
+
+# -- MoE slot positions (csrc/moe_positions.cu) ----------------------------------
+
+# name: (B, S, k, E, capacity, distinct): the benchmark cells' shapes at
+# E = 64 and a capacity factor of 1.25 (train-4k, train-8k, prefill), a
+# decode step (capacity = the batch), then the edges: E not a power of
+# two, E = 1, lengths that no tile divides, a group of many tiles, every
+# choice on one expert, capacity above S, 256 (DeepSeek-V3's count) and
+# the most experts the kernel takes, repeats within a token.
+POSITIONS_CARD = {
+    "train_4k": (1, 4096, 6, 64, 481, True),
+    "train_8k": (1, 8192, 6, 64, 961, True),
+    "prefill": (4, 1024, 6, 64, 121, True),
+    "decode": (16, 1, 6, 64, 16, True),
+    "experts_not_a_power_of_two": (3, 777, 2, 5, 250, True),
+    "one_expert": (2, 300, 1, 1, 300, True),
+    "no_tile_divides": (3, 1367, 6, 64, 161, True),
+    "many_tiles": (1, 50_001, 3, 64, 2000, True),
+    "one_expert_takes_all": (2, 700, 6, 64, 82, None),
+    "capacity_above_s": (2, 30, 6, 8, 35, True),
+    "experts_256": (2, 2048, 8, 256, 81, True),
+    "experts_max": (1, 4096, 8, 1024, 41, True),
+    "repeats_within_a_token": (2, 999, 4, 3, 1400, False),
+}
+
+
+def _choices(b, s, k, e, distinct, seed):
+    gen = torch.Generator().manual_seed(seed)
+    if distinct is None:
+        return torch.full((b, s, k), 7, dtype=torch.int64)
+    if distinct:
+        return torch.argsort(torch.rand((b, s, e), generator=gen),
+                             dim=-1)[..., :k].contiguous()
+    return torch.randint(0, e, (b, s, k), generator=gen)
+
+
+@pytest.mark.parametrize("case", list(POSITIONS_CARD))
+def test_moe_positions_kernel_is_the_plain_version(dev, case):
+    """pos and keep equal the plain version's, on the card and on the
+    CPU, in one launch."""
+    from repro_torch.kernels.moe_positions import kernel as positions_k
+    from repro_torch.models import moe
+
+    b, s, k, e, c, distinct = POSITIONS_CARD[case]
+    top_e = _choices(b, s, k, e, distinct, seed=s + e)
+    want_pos, want_keep = moe._positions_plain(top_e, e, c)
+    before = positions_k.positions.launches
+    pos, keep = positions_k.positions(top_e.to(dev), e, c)
+    assert positions_k.positions.launches == before + 1
+    card_pos, card_keep = moe._positions_plain(top_e.to(dev), e, c)
+    assert torch.equal(pos, card_pos) and torch.equal(keep, card_keep)
+    assert torch.equal(pos.cpu(), want_pos)
+    assert torch.equal(keep.cpu(), want_keep)
+
+
+def test_moe_positions_kernel_skips_an_expert_out_of_range(dev):
+    """An expert outside [0, E) takes no slot (pos -1, keep False) and
+    moves no other choice's position."""
+    from repro_torch.kernels.moe_positions import kernel as positions_k
+    from repro_torch.models import moe
+
+    e = 64
+    top_e = _choices(2, 500, 6, e, True, seed=9)
+    bad = torch.zeros(top_e.shape, dtype=torch.bool)
+    bad.view(-1)[::7] = True
+    top_e[bad] = torch.tensor([-1, e, e + 100, -(2 ** 40)]).repeat(
+        int(bad.sum()) // 4 + 1)[:int(bad.sum())]
+    want_pos, want_keep = moe._positions_plain(
+        torch.where(bad, e, top_e), e + 1, 40)
+    pos, keep = positions_k.positions(top_e.to(dev), e, 40)
+    assert torch.equal(pos.cpu(), torch.where(bad, -1, want_pos))
+    assert torch.equal(keep.cpu(), want_keep & ~bad)
+
+
+def test_moe_positions_kernel_refuses_and_is_captured(dev):
+    """int32, a non-contiguous view and more than MAX_EXPERTS experts
+    raise; the launch replays in a CUDA graph on new choices."""
+    from repro_torch.kernels.moe_positions import kernel as positions_k
+    from repro_torch.models import moe
+
+    top_e = _choices(4, 1024, 6, 64, True, seed=1).to(dev)
+    with pytest.raises(TypeError, match="int64"):
+        positions_k.positions(top_e.int(), 64, 121)
+    with pytest.raises(ValueError, match="contiguous"):
+        positions_k.positions(top_e.transpose(0, 1), 64, 121)
+    with pytest.raises(ValueError, match="experts"):
+        positions_k.positions(top_e, positions_k.MAX_EXPERTS + 1, 121)
+    static = top_e.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        positions_k.positions(static, 64, 121)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        pos, keep = positions_k.positions(static, 64, 121)
+    fresh = _choices(4, 1024, 6, 64, True, seed=2).to(dev)
+    static.copy_(fresh)
+    graph.replay()
+    torch.cuda.synchronize()
+    want_pos, want_keep = moe._positions_plain(fresh, 64, 121)
+    assert torch.equal(pos, want_pos) and torch.equal(keep, want_keep)
+
+
+def test_moe_positions_on_the_card_take_the_kernel_route(dev):
+    """``_positions`` on a CUDA tensor (top-k's non-contiguous indices)
+    launches the kernel once and counts every choice as the kernel's."""
+    from repro_torch import obs
+    from repro_torch.kernels.moe_positions import kernel as positions_k
+    from repro_torch.models import moe
+
+    idx = torch.argsort(torch.rand((2, 300, 64), device=dev), dim=-1)
+    top_e = idx[..., :6]
+    before = positions_k.positions.launches
+    tel = obs.Telemetry()
+    with obs.use(tel):
+        pos, keep = moe._positions(top_e, 64, 36)
+    assert positions_k.positions.launches == before + 1
+    assert tel.counters() == {"moe.positions_kernel": top_e.numel(),
+                              "moe.positions_plain": 0}
+    want_pos, want_keep = moe._positions_plain(top_e, 64, 36)
+    assert torch.equal(pos, want_pos) and torch.equal(keep, want_keep)

@@ -485,8 +485,8 @@ def test_step_spans_and_moe_counters(monkeypatch, remat, dispatch,
     same forward (``moe.load_max`` the busiest expert's token choices of
     each layer), once, though the layer checkpoint's recomputation
     routes again; the optimizer counts every parameter on the plain
-    route and none on the kernel's; with the disabled registry nothing
-    is counted."""
+    route and none on the kernel's, and the slot positions every routed
+    choice; with the disabled registry nothing is counted."""
     from repro_torch import obs
     from repro_torch.models import moe
 
@@ -532,7 +532,8 @@ def test_step_spans_and_moe_counters(monkeypatch, remat, dispatch,
     # With remat the checkpoint routes each layer again in the backward.
     assert len(keeps) == cfg.n_layers * microbatches * (2 if remat else 1)
     want.update({"optim.kernel_elems": 0, "optim.plain_elems": sum(
-        t.numel() for t in p.values())})
+        t.numel() for t in p.values()), "moe.positions_kernel": 0,
+        "moe.positions_plain": want["moe.routed"]})
     assert tel.counters() == want
     spans = tel.spans_by_name()
     assert {k: v["count"] for k, v in spans.items()} == {
