@@ -10,7 +10,7 @@ At one attention layer of qwen2.5-32b (1 x 40 x 4096 x 128, float32,
 causal; ``chip_smoke.py``'s ``ATTN``) it prints one JSON line per
 (block_q, block_k): CUDA-event median ms (``chip_smoke.time_cuda``: L2
 flushed before each call) and max abs error against the plain version.
-``--served`` takes the serve phase's prefill instead: bfloat16, 4 x
+``--served`` takes the serve path's prefill instead (``SERVE``): bfloat16, 4 x
 1,024 tokens, 40 q heads on qwen2.5-32b's 8 kv heads in the (B, S, H,
 D) layout the projections leave (the bf16 kernel; ``--blocks all`` is
 its four pairs). ``--sdpa`` adds ``scaled_dot_product_attention`` on

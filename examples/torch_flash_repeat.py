@@ -16,8 +16,8 @@ output element, so every launch must give the same bits. One JSON line
 per case and condition: the number of distinct outputs (SHA-256 of
 their bytes) and the least and largest max abs error against a float64
 softmax of the same inputs (the sweep's own reference,
-``chip_smoke.py:float64_attention``; it gates it at 2e-5 in float32 and
-3e-2 in bf16). The card's name, power limit and ECC
+``kernels/flash_attention/ref.py:float64_attention``; the card tests
+gate it at 2e-5 in float32 and 3e-2 in bf16). The card's name, power limit and ECC
 counters come first, the ECC counters again last.
 
 ``--fresh N`` instead starts N processes, each of which launches the
@@ -55,8 +55,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (ecc_line, float64_attention,  # noqa: E402
-                        nvidia_smi_line, sweep_inputs)
+from chip_smoke import ecc_line, nvidia_smi_line, sweep_inputs  # noqa: E402,E501
+from repro_torch.kernels.flash_attention.ref import float64_attention  # noqa: E402,E501
 
 
 def digest(t: torch.Tensor) -> str:

@@ -30,7 +30,7 @@ same grid timed the same way (the launch's floor):
   gathers cost.
 
 ``--onehot`` times the narrow-band kernel instead (``ell_onehot``, the
-one ``chip_smoke.py``'s onehot phase runs): at the paper's n and nnz on
+one ``chip_smoke.py``'s kernels phase times): at the paper's n and nnz on
 a band of half-width 512 (K = 10, block_r 256, a window of 1,280
 floats, 586 CTAs), one JSON line with its cold and warm µs, its cold µs
 with L2 flushed by a read (``us_clean_l2``: no dirty line of the flush

@@ -5,11 +5,14 @@
 //
 // Replaces: no Pallas kernel. The JAX package takes a jnp.cumsum over a
 // one-hot (src/repro/models/moe.py:_positions) that XLA fuses. The
-// port's plain version (models/moe.py:_positions_plain) builds the int64
-// one-hot (B, S k, E), scans it along S k, subtracts and gathers; at
-// B = 1 PyTorch's outer-dimension scan spreads over only E = 64 columns,
-// each walking S k entries one after another (about 13 ms at
-// 1 x 8,192 x 6 on the H100).
+// port's plain version (models/moe.py:_positions_plain) builds a bool
+// one-hot laid out (B, E, S k), scans it in int32 along its innermost
+// dim and gathers each choice's own count: passes over E x S k entries,
+// 71.8 / 111.2 / 70.2 us at 1 x 4,096 x 6, 1 x 8,192 x 6 and
+// 4 x 1,024 x 6 with E = 64 on the H100. The plain version this kernel
+// first replaced scanned an int64 one-hot (B, S k, E) along its outer
+// dim, which at B = 1 spreads over only E = 64 columns, each walking
+// S k entries one after another (about 13 ms at 1 x 8,192 x 6).
 //
 // What bounds it on the H100: the launch. Each entry is read once (8 B)
 // and written once (8 B of pos, 1 B of keep): 17 B, 0.25 us at 49,152

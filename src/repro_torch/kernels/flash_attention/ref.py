@@ -1,4 +1,4 @@
-"""Plain PyTorch oracle for the flash-attention kernel."""
+"""Plain PyTorch oracles for the flash-attention kernel."""
 from __future__ import annotations
 
 import torch
@@ -19,3 +19,20 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = p / p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
+
+
+def float64_attention(a, dtype: torch.dtype, causal: bool) -> torch.Tensor:
+    """The card tests' oracle: a float64 softmax on the CPU of the inputs
+    ``a`` (q, k, v as float32 numpy arrays, (B, H, S, D), k and v with
+    H / g heads, q head h reading kv head h // g) rounded to ``dtype``
+    first, scaled by the true head dim, causal mask right-aligned."""
+    q, k, v = (torch.from_numpy(t).to(dtype).double() for t in a)
+    g = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(g, dim=1) for t in (k, v))
+    s = q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5
+    if causal:
+        sq, skv = s.shape[-2:]
+        live = torch.arange(skv)[None, :] <= \
+            torch.arange(sq)[:, None] + (skv - sq)
+        s = s.masked_fill(~live, float("-inf"))
+    return torch.softmax(s, -1) @ v

@@ -6,7 +6,7 @@ shape x mesh) cell: the step function, its arguments and their
 placements. The model is built on the meta device and every argument is
 a DTensor whose local shard is a meta tensor (the reference's
 ``ShapeDtypeStruct``s): shapes, dtypes and placements, no storage. On a
-mesh over a real process group (the one-GPU cell of ``chip_smoke.py``)
+mesh over a real process group (``tests/card_child.py dist_card``)
 ``build_cell(..., device=...)`` draws the parameters instead and the
 same code runs the step.
 

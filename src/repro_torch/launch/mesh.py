@@ -39,6 +39,16 @@ def make_production_mesh(*, multi_pod: bool = False,
                             mesh_dim_names=axes)
 
 
+def free_port() -> int:
+    """A TCP port on localhost that is free now, for a process group's
+    ``init_method`` (``tcp://localhost:<port>``)."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
 def make_local_mesh(n_data: int = 1, n_model: int = 1,
                     device_type: str = "cuda") -> DeviceMesh:
     """A small (data, model) mesh over the default group's first

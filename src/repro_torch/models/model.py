@@ -29,7 +29,6 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
-from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding as shd
 from repro_torch.models import params as prm
@@ -200,17 +199,12 @@ class LM(nn.Module):
         """Once a train step, after the optimizer: each router's bias b_i
         += bias_rate x sign(mean load - load_i), the loads its forwards
         counted since the last update (before capacity drops), which are
-        then zeroed (DeepSeek-V3 §2.1.2). Adds sum |b| over the layers to
-        the counter ``moe.bias_abs``."""
-        routers = self.routers()
-        for p in routers:
+        then zeroed (DeepSeek-V3 §2.1.2)."""
+        for p in self.routers():
             load = p["router_load"]
             p["router_bias"].add_(torch.sign(load.mean() - load),
                                   alpha=self.cfg.moe.bias_rate)
             load.zero_()
-        if routers and obs.enabled():
-            obs.counter("moe.bias_abs").add(
-                sum(p["router_bias"].abs().sum() for p in routers))
 
     def all_stages(self) -> list[Stage]:
         """The encoder (enc-dec only), then the decoder."""

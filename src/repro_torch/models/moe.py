@@ -42,10 +42,9 @@ as well.
 Slot positions (``_positions``, shared by both dispatches): on a CUDA
 device the hand-written kernel of ``kernels/moe_positions`` gives them,
 one launch a call, exactly the plain version's; elsewhere the plain
-version (``_positions_plain``), a cumsum over an int64 one-hot. With a
-registry current the choices each route placed are counted as
-``moe.positions_kernel`` and ``moe.positions_plain``, where
-``moe.routed`` is.
+version (``_positions_plain``), an int32 scan of a bool one-hot along
+the choices. A DTensor's positions come from its local shard, whose
+groups must be whole.
 """
 from __future__ import annotations
 
@@ -149,22 +148,22 @@ def _capacity(s: int, mc: MoeConfig, override: int | None = None) -> int:
 
 def _positions_plain(top_e: torch.Tensor, e: int, c: int):
     """Slot positions within each (group, expert) capacity buffer: a
-    cumsum over the flattened (S*k) order, so among one token's k
-    choices the first takes a slot first.
+    bool one-hot laid out (B, E, S*k) and scanned in int32 along the
+    flattened (S*k) order, each choice's own expert's count read back,
+    so among one token's k choices the first takes a slot first.
 
-    top_e: (B, S, k). Returns (pos (B,S,k), keep (B,S,k))."""
+    top_e: (B, S, k). Returns (pos (B,S,k) int64, keep (B,S,k))."""
     b, s, k = top_e.shape
-    flat = top_e.reshape(b, s * k)
-    onehot = F.one_hot(flat, e)                             # (B,S*k,E)
-    pos_all = torch.cumsum(onehot, dim=1) - onehot
-    pos = torch.gather(pos_all, -1, flat[..., None])[..., 0]
-    pos = pos.reshape(b, s, k)
+    flat = top_e.reshape(b, 1, s * k)
+    hit = flat == torch.arange(e, device=top_e.device)[:, None]
+    upto = torch.cumsum(hit, dim=-1, dtype=torch.int32)     # (B,E,S*k)
+    pos = (torch.gather(upto, 1, flat) - 1).reshape(b, s, k).long()
     return pos, pos < c
 
 
-def _positions_local(top_e: DTensor, e: int, c: int):
-    """The kernel on each device's shard of ``top_e``, whose groups are
-    whole on every device (sharded on B or replicated), as DTensors of
+def _positions_local(top_e: DTensor, e: int, c: int, fn):
+    """``fn`` on each device's shard of ``top_e``, whose groups are whole
+    on every device (sharded on B or replicated), as DTensors of
     ``top_e``'s placements."""
     places = tuple(top_e.placements)
     if not all(p.is_replicate() or p.is_shard(0) for p in places):
@@ -174,26 +173,18 @@ def _positions_local(top_e: DTensor, e: int, c: int):
     return tuple(DTensor.from_local(t, top_e.device_mesh, places,
                                     run_check=False, shape=top_e.shape,
                                     stride=t.stride())
-                 for t in positions_k.positions(
-                     top_e.to_local().contiguous(), e, c))
+                 for t in fn(top_e.to_local().contiguous(), e, c))
 
 
 def _positions(top_e: torch.Tensor, e: int, c: int):
     """:func:`_positions_plain`'s (pos, keep): on a CUDA device from the
-    kernel (a DTensor's from its local shard), elsewhere from the plain
-    version."""
-    on_card = top_e.device.type == "cuda"
-    if not on_card:
-        pos, keep = _positions_plain(top_e, e, c)
-    elif isinstance(top_e, DTensor):
-        pos, keep = _positions_local(top_e, e, c)
-    else:
-        pos, keep = positions_k.positions(top_e.contiguous(), e, c)
-    if _counting():
-        n = (keep.to_local() if isinstance(keep, DTensor) else keep).numel()
-        obs.counter("moe.positions_kernel").add(n if on_card else 0)
-        obs.counter("moe.positions_plain").add(0 if on_card else n)
-    return pos, keep
+    kernel, elsewhere from the plain version (a DTensor's from its local
+    shard)."""
+    fn = positions_k.positions if top_e.device.type == "cuda" else \
+        _positions_plain
+    if isinstance(top_e, DTensor):
+        return _positions_local(top_e, e, c, fn)
+    return fn(top_e.contiguous(), e, c)
 
 
 def _counting() -> bool:

@@ -229,7 +229,7 @@ class Telemetry:
     (:mod:`repro_torch.obs.exporters` ships JSONL and Perfetto/Chrome-trace
     implementations; an empty list keeps everything in-memory for the
     :meth:`summary` table and the ``spans_by_name`` aggregate, which is
-    how tests and chip_smoke.py read it).
+    how tests read it).
 
     Timestamps are ``time.perf_counter_ns`` offsets from registry
     construction, exported in microseconds and monotone within a

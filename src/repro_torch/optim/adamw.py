@@ -18,10 +18,7 @@ ever held: callers that want to start twice from one state pass copies.
 On a CUDA device :meth:`AdamW.step` runs each leaf through the
 hand-written kernels of ``kernels/adamw`` (one pass for the gradient
 norm, one fused update; the same arithmetic), elsewhere through their
-plain versions; with a telemetry registry current it counts the
-elements each route updated (``optim.kernel_elems``,
-``optim.plain_elems``). :meth:`AdamW.update` always takes the plain
-version.
+plain versions. :meth:`AdamW.update` always takes the plain version.
 """
 from __future__ import annotations
 
@@ -32,7 +29,6 @@ from typing import Callable
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
-from repro_torch import obs
 from repro_torch.kernels.adamw import ops as adamw_ops
 
 
@@ -140,13 +136,9 @@ class AdamW:
             scale = self._scale(torch.sqrt(total))
             if isinstance(scale, DTensor):
                 scale = scale.full_tensor()
-        hyper, on_card = self._hyper(), 0
+        hyper = self._hyper()
         for p, g, mu, nu, m in leaves.values():
             adamw_ops.update(p, g, mu, nu, m, scale, bc1, bc2, lr, **hyper)
-            on_card += p.numel() if p.device.type == "cuda" else 0
-        obs.counter("optim.kernel_elems").add(on_card)
-        obs.counter("optim.plain_elems").add(
-            sum(leaf[0].numel() for leaf in leaves.values()) - on_card)
         state["count"] = count
         return params, state
 

@@ -205,8 +205,7 @@ def distill(result: "SearchResult",
 
     def staged(name, fn):
         # Each stage is both a rules.<stage> telemetry span and a
-        # stage_seconds entry (chip_smoke.py and the tests read the
-        # dict).
+        # stage_seconds entry (the tests read the dict).
         with obs.span(f"rules.{name}"):
             t0 = time.perf_counter()
             out = fn()

@@ -281,7 +281,7 @@ def make_distributed_spmv(parts: list[RankPartition],
     the kernels, and one that fails to build or launch raises.
     ``run.spmv`` is the device state; ``run.step()`` is one step on its
     ``x`` through the eager runner and ``run.replay()`` one through the
-    graph, both without the host copies (what ``chip_smoke.py`` times).
+    graph, both without the host copies (what a timing loop calls).
     """
     r_n, m = len(parts), parts[0].m
     spmv = from_reference(stack_partitions(parts),
@@ -446,7 +446,7 @@ def make_rank_spmv(part: RankPartition, mesh: DeviceMesh,
     allocated once; one exchange at set-up is the group's first
     point-to-point call (every rank makes it; NCCL connects there).
     ``run.step()`` is one step on the device's ``x`` without host copies
-    or a sync (what ``chip_smoke.py`` times); it returns y on the device.
+    or a sync (what a timing loop calls); it returns y on the device.
     """
     n_ranks = mesh.size()
     dev = rank_device(n_ranks, device)

@@ -1,8 +1,11 @@
 """Card-only checks of the port: each hand-written kernel against its
-plain PyTorch version, the launch counters, and the two race checks (a
-removed sync must fail the value gate). Skipped without a CUDA device;
-on the card: ``PYTHONPATH=src python -m pytest -m cuda
-tests/test_torch_cuda.py``."""
+plain PyTorch version, the launch counters, the two race checks (a
+removed sync must fail the value gate), and the paths that run the
+kernels: the search, serving, training and distribution layers at
+reduced sizes. Skipped without a CUDA device; on the card:
+``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
+import json
+import subprocess
 import sys
 from pathlib import Path
 
@@ -21,9 +24,10 @@ from repro_torch.spmv.matrix import (band_matrix, partition,  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-# chip_smoke.py lives at the repository root, which pytest does not put
-# on sys.path by itself (tests/ is not a package).
 REPO_ROOT = str(Path(__file__).resolve().parents[1])
+# The children that tests run in processes of their own.
+CARD_CHILD = str(Path(__file__).resolve().parent / "card_child.py")
+SLEEP_CYCLES = 50_000_000      # ~25 ms of device sleep (delays a producer)
 
 
 @pytest.fixture
@@ -76,6 +80,18 @@ def test_pack_kernel_matches_plain(dev, n, m, dtype):
     assert torch.equal(out, pack_plain(x, idx_t))
 
 
+def ragged_ell(n, k, rng):
+    """Row lengths uniform in 0..K, slots past a row's length 0 with a
+    valid column (the layout spmv/matrix.py:partition leaves)."""
+    length = rng.integers(0, k + 1, size=n)
+    live = np.arange(k)[None, :] < length[:, None]
+    vals = np.where(live, rng.standard_normal((n, k)), 0.0).astype(
+        np.float32)
+    cols = np.where(live, rng.integers(0, n, size=(n, k)),
+                    np.arange(n)[:, None]).astype(np.int32)
+    return vals, cols, rng.standard_normal(n).astype(np.float32)
+
+
 @pytest.mark.parametrize("n,k,dtype", [
     (64, 1, torch.float32), (300, 7, torch.float32),
     (512, 8, torch.float32), (1024, 16, torch.bfloat16),
@@ -87,9 +103,6 @@ def test_ell_spmv_slices_match_plain(dev, n, k, dtype, layout):
     against its plain version; the sliced result is the padded one bit
     for bit (the skipped slots hold 0, the sum order is kept)."""
     from repro_torch.kernels.spmv.ops import ell_matvec_t, sliced_operands
-    if REPO_ROOT not in sys.path:
-        sys.path.insert(0, REPO_ROOT)
-    from chip_smoke import ragged_ell
     vals, cols, x = ragged_ell(n, k, np.random.default_rng(n + k))
     vt = torch.from_numpy(vals.T.copy()).to(dev, dtype)
     ct = torch.from_numpy(cols.T.copy()).to(dev)
@@ -180,6 +193,10 @@ def test_distributed_orderings_with_the_kernels_are_bit_equal(small_spmv):
 
 
 def test_demo_spmv_impls_on_card_gates_every_schedule(dev):
+    """demo_spmv_impls (16 x 16 dense products) through the wallclock
+    evaluator on the card: all 280 schedules gated against the reference
+    schedule's outputs, and those within 1e-5 of float64 products of the
+    same inputs."""
     from repro_torch.core.dag import spmv_dag
     from repro_torch.core.enumerate import enumerate_schedules
     from repro_torch.engine import make_evaluator
@@ -191,17 +208,108 @@ def test_demo_spmv_impls_on_card_gates_every_schedule(dev):
                         reset=lambda: None, device=dev, repeats=1)
     times = ev.evaluate(list(enumerate_schedules(g, 2)))
     assert ev.n_checked == len(times) == 280 and min(times) > 0
+    rng = np.random.default_rng(0)
+    al, ar, xl = (rng.normal(size=sz).astype(np.float32).astype(np.float64)
+                  for sz in ((16, 16), (16, 16), (16,)))
+    ref = ev.reference_outputs()
+    for k, want in (("yL", al @ xl), ("yR", ar @ xl)):
+        assert np.abs(ref[k] - want).max() <= 1e-5 * np.abs(want).max(), k
+
+
+def race_checks(spmv, dev) -> dict:
+    """Two schedules with one sync removed: Pack delayed on its stream
+    and CES-b4-PostSend removed (PostSend's copies no longer wait), and a
+    GPU producer and consumer on two streams without the CSWE. Each must
+    pass the value gate intact and fail it cut (``checks``). Through the
+    CUDA graph runner (``graph_checks``) the intact schedules must pass,
+    and whether the gate caught the race is reported: in a graph a race
+    may or may not show."""
+    from repro_torch.core.dag import (BoundOp, Graph, Op, OpKind, Schedule,
+                                      spmv_dag)
+    from repro_torch.core.executor import GraphRunner, op_impl, run_items
+    from repro_torch.core.sync import expand
+    from repro_torch.engine.wallclock import (ExecutorEvaluator,
+                                              reference_schedule)
+
+    graph_checks: list = []
+
+    def caught(ev, g, items, drop) -> dict:
+        cut = [it for it in items if it.name != drop]
+        assert len(cut) == len(items) - 1, f"{drop} not in the schedule"
+        ev.check(run_items(g, items, ev.impls, dev), "intact schedule")
+        with pytest.raises(AssertionError) as gate:
+            ev.check(run_items(g, cut, ev.impls, dev), f"without {drop}")
+        # Through the graph: the first call captures (its eager warm-up
+        # and its replay write every buffer), so the gated call is a
+        # replay from poisoned buffers.
+        seen = None
+        for its in (items, cut):
+            run = GraphRunner(g, its, ev.impls, dev)
+            run(ev.env)
+            try:
+                ev.check(run, "as a CUDA graph")
+            except AssertionError as e:
+                if its is items:
+                    raise
+                seen = str(e).strip().splitlines()[0][:160]
+            finally:
+                run.release()
+        graph_checks.append({"dropped": drop, "caught": seen is not None,
+                             "gate": seen})
+        return {"dropped": drop, "caught": True,
+                "gate": str(gate.value).strip().splitlines()[0][:160]}
+
+    g = spmv_dag()
+    impls = spmv.impls()
+    pack_impl = impls["Pack"]
+
+    def slow_pack(env):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return pack_impl(env)
+
+    impls["Pack"] = slow_pack
+    ev = ExecutorEvaluator(g, impls=impls, env=spmv.env(),
+                           reset=spmv.poison, device=dev)
+    spmv_race = caught(ev, g, expand(g, reference_schedule(g)),
+                       "CES-b4-PostSend")
+    # The gate holds NaN equal to NaN: a row that the sorted layout's
+    # perm missed would stay poisoned in the reference too.
+    ref = ev.reference_outputs()
+    assert all(np.isfinite(ref[k]).all() for k in ("yL", "yR"))
+
+    toy = Graph()
+    toy.add_op(Op("P", OpKind.GPU))
+    toy.add_op(Op("C", OpKind.GPU))
+    toy.add_edge("P", "C")
+    toy.finalize()
+    src = torch.arange(1 << 20, dtype=torch.float32, device=dev)
+    mid, res = torch.empty_like(src), torch.empty_like(src)
+
+    def produce(s):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return torch.mul(s, 2.0, out=mid)
+
+    def poison():
+        mid.fill_(float("nan"))
+        res.fill_(float("nan"))
+
+    toy_impls = {"P": op_impl(produce, ["src"], ["mid"]),
+                 "C": op_impl(lambda m: torch.add(m, 1.0, out=res),
+                              ["mid"], ["res"])}
+    sched = Schedule((BoundOp("start"), BoundOp("P", 0), BoundOp("C", 1),
+                      BoundOp("end")))
+    ev = ExecutorEvaluator(toy, impls=toy_impls, env={"src": src},
+                           reset=poison, device=dev)
+    toy_race = caught(ev, toy, expand(toy, sched), "CSWE-b4-C")
+    return {"checks": [spmv_race, toy_race], "graph_checks": graph_checks}
 
 
 def test_removed_syncs_are_caught_by_the_gate(small_spmv, dev):
     """Pack delayed and CES-b4-PostSend removed; a producer/consumer pair
     on two streams with its CSWE removed: both fail the value gate, and
-    both pass intact (chip_smoke.py's race phase)."""
-    if REPO_ROOT not in sys.path:
-        sys.path.insert(0, REPO_ROOT)
-    import chip_smoke
+    both pass intact."""
     _, _, spmv = small_spmv
-    checks = chip_smoke.phase_race(spmv, dev)["checks"]
+    checks = race_checks(spmv, dev)["checks"]
     assert [c["dropped"] for c in checks] == ["CES-b4-PostSend",
                                              "CSWE-b4-C"]
     assert all(c["caught"] for c in checks)
@@ -214,9 +322,6 @@ def test_measure_cuda_times_a_device_sleep(dev):
     sleep's CUDA-event time: the window waits for the device work its
     samples enqueued."""
     from repro_torch.core.bench import measure_cuda
-    if REPO_ROOT not in sys.path:
-        sys.path.insert(0, REPO_ROOT)
-    from chip_smoke import SLEEP_CYCLES
 
     def sleep():
         torch.cuda._sleep(SLEEP_CYCLES)
@@ -429,14 +534,11 @@ def test_distributed_spmv_replay_is_the_step(small_spmv):
 
 
 def test_removed_syncs_through_the_graph_are_reported(small_spmv, dev):
-    """chip_smoke.py's race phase through jit_runner: the intact schedules
-    pass the gate as graphs (else the phase raises), and whether each
-    race showed is reported, not asserted."""
-    if REPO_ROOT not in sys.path:
-        sys.path.insert(0, REPO_ROOT)
-    import chip_smoke
+    """The race checks through jit_runner: the intact schedules pass the
+    gate as graphs (else the check raises), and whether each race showed
+    is reported, not asserted."""
     _, _, spmv = small_spmv
-    checks = chip_smoke.phase_race(spmv, dev)["graph_checks"]
+    checks = race_checks(spmv, dev)["graph_checks"]
     assert [c["dropped"] for c in checks] == ["CES-b4-PostSend",
                                              "CSWE-b4-C"]
     print("graph races:", checks)
@@ -503,6 +605,75 @@ def test_histogram_distill_equals_dense_on_measured_times(small_spmv, dev):
         == [(r.class_label, r.rules, r.n_samples) for r in ooc.rulesets]
 
 
+# -- kernel autotuning and the evaluation service -------------------------------
+
+@pytest.mark.parametrize("name", ["pack", "spmv_mulsum", "flash_attention"])
+def test_autotune_sweep_gates_every_candidate(dev, name):
+    """One exhaustive sweep of a kernel's autotune space (its default
+    instance) through the wallclock evaluator on the card: every
+    candidate gated against the space's reference and timed, the kernel
+    launched."""
+    from repro_torch.engine import make_evaluator
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.search import ExhaustiveSearch, run_search
+    from repro_torch.space import make_space
+    counter = {"pack": pack_k.pack, "spmv_mulsum": spmv_k.ell_spmv,
+               "flash_attention": fa_k.flash_attention}[name]
+    sp = make_space(name, device=dev)
+    ev = make_evaluator(sp, "wallclock", repeats=3, warmup=1, device=dev)
+    before = counter.launches
+    res = run_search(sp, ExhaustiveSearch(sp), ev, budget=sp.n_candidates())
+    assert ev.n_checked == len(res.schedules) == sp.n_candidates() > 1
+    assert all(np.isfinite(t) and t > 0.0 for t in res.times)
+    assert counter.launches > before
+
+
+def _card_files(pid: int) -> list:
+    """The /dev/nvidia* files a process holds open: a CUDA context holds
+    some, a process that only imported torch holds none."""
+    import os
+
+    fds = f"/proc/{pid}/fd"
+    out = set()
+    for fd in os.listdir(fds):
+        try:
+            target = os.readlink(os.path.join(fds, fd))
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.add(target)
+    return sorted(out)
+
+
+def test_a_vectorized_rpc_server_holds_no_card(dev):
+    """``python -m repro_torch.engine.server --space halo3d --backend
+    vectorized`` on the card's host answers an rpc search bit for bit as
+    local sim does, with no local evaluation, and holds no /dev/nvidia*
+    file while this process, which holds a CUDA context, does: an rpc
+    objective is analytic."""
+    import os
+
+    from repro_torch.core.dag import halo3d_dag
+    from repro_torch.engine import make_evaluator, spawn_server_process
+    from repro_torch.search import MCTSSearch, run_search
+    torch.zeros(1, device=dev)
+    g = halo3d_dag()
+    run = dict(budget=None, sim_budget=30, batch_size=8)
+    server = spawn_server_process("halo3d", backend="vectorized")
+    try:
+        with make_evaluator(g, "rpc", hosts=[server.addr], min_shard=1,
+                            deadline=10.0, connect_timeout=5.0) as ev:
+            res = run_search(g, MCTSSearch(g, 2, seed=5), ev, **run)
+            assert ev.rpc_stats()["local_evals"] == 0
+        files = _card_files(server.proc.pid)
+    finally:
+        server.terminate()
+    ref = run_search(g, MCTSSearch(g, 2, seed=5), backend="sim", **run)
+    assert res.times_array().tobytes() == ref.times_array().tobytes()
+    assert files == []
+    assert _card_files(os.getpid())
+
+
 # -- flash attention and the narrow-band SpMV -----------------------------------
 
 ATTN_CASES = [((2, 3, 256, 64), (2, 3, 256, 64), torch.float32, True),
@@ -518,14 +689,12 @@ def test_flash_attention_kernel_matches_plain(dev, q_shape, kv_shape,
                                               dtype, causal):
     """tests/test_kernels.py:118-156's cases: the kernel behind mha's
     padding against a float64 softmax of the same inputs rounded to the
-    case's dtype (chip_smoke.float64_attention); f32 2e-5, bf16 3e-2
+    case's dtype (``float64_attention``); f32 2e-5, bf16 3e-2
     (bf16 outputs). Not against the CPU's float32 plain path, which
     differs between processes (PERF.md)."""
-    if REPO_ROOT not in sys.path:
-        sys.path.insert(0, REPO_ROOT)
-    from chip_smoke import float64_attention
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.flash_attention.ref import float64_attention
     rng = np.random.default_rng(sum(q_shape))
     arrays = [rng.standard_normal(s).astype(np.float32)
               for s in (q_shape, kv_shape, kv_shape)]
@@ -562,13 +731,11 @@ def test_flash_attention_bf16_and_grouped_heads_match_float64(
         dev, q_shape, kv_shape, dtype, causal):
     """Through ``mha`` (one launch a call): bf16 at each ATTN_CASES
     shape, and g q heads on each kv head (g = 5 and 2), against
-    chip_smoke.float64_attention on kv widened on the host (f32 2e-5,
+    ``float64_attention`` on kv widened on the host (f32 2e-5,
     bf16 3e-2, as test_flash_attention_kernel_matches_plain)."""
-    if REPO_ROOT not in sys.path:
-        sys.path.insert(0, REPO_ROOT)
-    from chip_smoke import float64_attention
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.flash_attention.ref import float64_attention
     rng = np.random.default_rng(sum(q_shape) + sum(kv_shape))
     arrays = [rng.standard_normal(s).astype(np.float32)
               for s in (q_shape, kv_shape, kv_shape)]
@@ -592,10 +759,8 @@ def test_flash_attention_reads_projection_outputs_where_they_lie(
     output a (B, S, Hq, D) buffer: one launch, no copy of any operand
     (each is read where it lies), and the plain version's values on the
     same views within f32 2e-5 / bf16 3e-2 of float64."""
-    if REPO_ROOT not in sys.path:
-        sys.path.insert(0, REPO_ROOT)
-    from chip_smoke import float64_attention
     from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention.ref import float64_attention
     b, s, d = 2, 256, 128
     rng = np.random.default_rng(hq)
     fused = torch.from_numpy(rng.standard_normal(
@@ -819,15 +984,19 @@ def test_generate_on_card_gives_the_cpu_tokens(dev):
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "rwkv6-3b",
                                   "jamba-v0.1-52b", "whisper-tiny",
-                                  "internvl2-2b"])
+                                  "internvl2-2b", "moonlight-16b-a3b"])
 def test_generate_on_card_gives_the_cpu_tokens_for_every_family(dev, arch):
     """Greedy tokens of each non-dense family's reduced config in
     float32 on the card (flash prefill where attention is causal, the
     Mamba and RWKV recurrences, MoE dispatch, the encoder and the VLM
-    prefix) equal those of the same weights and frontend on the CPU."""
+    prefix, latent attention's decode through its latent cache) equal
+    those of the same weights and frontend on the CPU; the prefill
+    launches the flash kernel once a causal attention layer (latent
+    attention has no kernel)."""
     import dataclasses
 
     from repro_torch.configs import get_reduced
+    from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.models.model import LM
     from repro_torch.serve.engine import Engine
     cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
@@ -843,8 +1012,12 @@ def test_generate_on_card_gives_the_cpu_tokens_for_every_family(dev, arch):
             (3, cfg.frontend.n_positions, cfg.frontend.d_frontend)).astype(
             np.float32))
     t_max = on_cpu.n_front + 56
+    causal = 0 if cfg.mla is not None else sum(
+        d.kind == "attn" and d.causal for d in on_card.descs)
+    before = fa_k.flash_attention.launches
     got = Engine(on_card, t_max=t_max).generate(
         prompts.to(dev), 12, frontend=None if front is None else front.to(dev))
+    assert fa_k.flash_attention.launches - before == causal
     want = Engine(on_cpu, t_max=t_max).generate(prompts, 12, frontend=front)
     assert torch.equal(got.cpu(), want)
 
@@ -868,7 +1041,7 @@ def test_mha_refuses_a_cuda_operand_that_needs_grad(dev):
 @pytest.mark.parametrize("arch", ["qwen2.5-32b", "moonshot-v1-16b-a3b",
                                   "deepseek-moe-16b", "jamba-v0.1-52b",
                                   "rwkv6-3b", "whisper-tiny",
-                                  "internvl2-2b"])
+                                  "internvl2-2b", "moonlight-16b-a3b"])
 def test_lm_loss_gradients_on_card_equal_the_cpu(dev, arch):
     """A reduced config on the card and on the CPU with one set of
     weights. qwen2.5-32b in bf16 activations (4 x 64 tokens): loss
@@ -878,8 +1051,8 @@ def test_lm_loss_gradients_on_card_equal_the_cpu(dev, arch):
     checkpointed chunks and RWKV three blocks (rwkv_chunk=32), with
     whisper's and internvl2's frontends: loss within 1e-5 relative, each
     gradient within 1e-3 of its max |g| (the f32 bound of
-    tests/test_torch_train_families.py). The flash route refuses a
-    backward."""
+    tests/test_torch_train_families.py). The flash route, where a model
+    has it (latent attention has none), refuses a backward."""
     import dataclasses
 
     from repro_torch.configs import get_reduced
@@ -912,7 +1085,8 @@ def test_lm_loss_gradients_on_card_equal_the_cpu(dev, arch):
         else:
             err = float((g_card - g_cpu).abs().max())
             assert err <= 1e-3 * float(g_cpu.abs().max()), (name, err)
-    if any(d.kind == "attn" and d.causal for d in card.descs):
+    if cfg.mla is None and any(d.kind == "attn" and d.causal
+                               for d in card.descs):
         with pytest.raises(RuntimeError, match="no backward"):
             card.loss(batch, rwkv_chunk=chunk)
 
@@ -920,8 +1094,8 @@ def test_lm_loss_gradients_on_card_equal_the_cpu(dev, arch):
 def test_mamba_backward_holds_the_state_once_a_chunk(dev):
     """jamba-v0.1-52b's Mamba mixer at full width (d_inner 8,192, N 16),
     1 x 1,024 tokens in bf16 under a layer checkpoint: the chunked loop
-    (8 checkpointed chunks of 128) stays within the bound chip_smoke.py
-    derives (12 f32 (B, S, d_inner) tensors, the chunks' states and one
+    (8 checkpointed chunks of 128) stays within the bound it derives
+    (12 f32 (B, S, d_inner) tensors, the chunks' states and one
     chunk's steps), the flat loop exceeds it (4 (B, d_inner, N) f32
     tensors a step), and both give the same gradients."""
     from torch.utils.checkpoint import checkpoint
@@ -994,30 +1168,22 @@ def test_three_train_steps_on_card(dev):
 
 # -- the distribution layer on one card ----------------------------------------
 
-DIST_CARD = r"""
-import json, sys
-sys.path.insert(0, sys.argv[1])
-sys.path.insert(0, sys.argv[1] + "/src")
-import torch
-import chip_smoke as cs
-from repro_torch.configs import get_reduced
-res = cs.dist_card(torch.device("cuda"), backend="nccl",
-                   cfg=get_reduced("qwen2.5-32b"), seq=64)
-print(json.dumps(res))
-"""
+def run_child(*args: str, timeout: float) -> subprocess.CompletedProcess:
+    """``tests/card_child.py`` with ``args`` in a process of its own (each
+    child makes a default process group)."""
+    return subprocess.run([sys.executable, CARD_CHILD, *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=REPO_ROOT)
 
 
 @pytest.fixture(scope="module")
 def dist_card_reduced():
-    """chip_smoke.py's dist card part at the reduced qwen config, in a
-    process of its own (it makes a one-rank NCCL default group)."""
+    """The 1x1-mesh train cell of the reduced qwen config and the
+    compressed sync on a one-rank NCCL group (``card_child.py
+    dist_card``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    import json
-    import subprocess
-
-    out = subprocess.run([sys.executable, "-c", DIST_CARD, REPO_ROOT],
-                         capture_output=True, text=True, timeout=600)
+    out = run_child("dist_card", timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
 
@@ -1039,17 +1205,12 @@ SHARD_SIZE = ("4096", "40960")
 
 
 def _shard_child(world: int):
-    """chip_smoke.py's shard child as rank 0 of ``world`` at a small
-    size (band_matrix(4096, 40960), half-width 1,024), in a process of
-    its own (it makes an NCCL default group)."""
-    import subprocess
+    """``card_child.py shard`` as rank 0 of ``world`` at a small size
+    (band_matrix(4096, 40960), half-width 1,024)."""
+    from repro_torch.launch.mesh import free_port
 
-    from chip_smoke import free_port
-
-    return subprocess.run(
-        [sys.executable, str(Path(REPO_ROOT) / "chip_smoke.py"), "--shard",
-         "0", str(world), str(free_port()), *SHARD_SIZE],
-        capture_output=True, text=True, timeout=300, cwd=REPO_ROOT)
+    return run_child("shard", "0", str(world), str(free_port()),
+                     *SHARD_SIZE, timeout=300)
 
 
 def test_shard_child_one_rank_kernels_against_plain(dev):
@@ -1058,8 +1219,6 @@ def test_shard_child_one_rank_kernels_against_plain(dev):
     one-process make_distributed_spmv's, ell_spmv launched twice a step
     with the kernels and nothing without, the kernel cases within 1e-4
     of the plain ones, the orderings with the kernels bit-equal."""
-    import json
-
     out = _shard_child(1)
     assert out.returncode == 0, out.stderr[-4000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
@@ -1162,26 +1321,20 @@ def test_adamw_kernels_match_plain_over_five_steps(dev, case, clip):
     card: mu, nu and p (p's float32 master copy where p is bfloat16, and
     p that copy rounded) within 1e-6 of their max |value| a leaf; two runs
     from one state bit-equal; each step launches one update a leaf and,
-    with the clip, one sum of squares a leaf and the finishing one; every
-    element counted on the kernel route."""
-    from repro_torch import obs
+    with the clip, one sum of squares a leaf and the finishing one: every
+    leaf takes the kernel route."""
     from repro_torch.kernels.adamw import kernel as adamw_k
 
     opt, params, state, grads = _adamw_case(dev, case, clip)
     runs = []
     for _ in range(2):
         p, s = _adamw_copy(params, state)
-        tel = obs.Telemetry()
-        with obs.use(tel):
-            for g in grads:
-                before = (adamw_k.sumsq.launches, adamw_k.update.launches)
-                opt.step(g, s, p)
-                assert (adamw_k.sumsq.launches - before[0],
-                        adamw_k.update.launches - before[1]) == (
-                    0 if clip is None else len(g) + 1, len(g))
-        n = sum(t.numel() for t in params.values())
-        assert tel.counters() == {"optim.kernel_elems": 5 * n,
-                                  "optim.plain_elems": 0}
+        for g in grads:
+            before = (adamw_k.sumsq.launches, adamw_k.update.launches)
+            opt.step(g, s, p)
+            assert (adamw_k.sumsq.launches - before[0],
+                    adamw_k.update.launches - before[1]) == (
+                0 if clip is None else len(g) + 1, len(g))
         runs.append((p, s))
     (p, s), (p2, s2) = runs
     pp, ps = _adamw_copy(params, state)
@@ -1334,19 +1487,14 @@ def test_moe_positions_kernel_refuses_and_is_captured(dev):
 
 def test_moe_positions_on_the_card_take_the_kernel_route(dev):
     """``_positions`` on a CUDA tensor (top-k's non-contiguous indices)
-    launches the kernel once and counts every choice as the kernel's."""
-    from repro_torch import obs
+    launches the kernel once: every choice is the kernel's."""
     from repro_torch.kernels.moe_positions import kernel as positions_k
     from repro_torch.models import moe
 
     idx = torch.argsort(torch.rand((2, 300, 64), device=dev), dim=-1)
     top_e = idx[..., :6]
     before = positions_k.positions.launches
-    tel = obs.Telemetry()
-    with obs.use(tel):
-        pos, keep = moe._positions(top_e, 64, 36)
+    pos, keep = moe._positions(top_e, 64, 36)
     assert positions_k.positions.launches == before + 1
-    assert tel.counters() == {"moe.positions_kernel": top_e.numel(),
-                              "moe.positions_plain": 0}
     want_pos, want_keep = moe._positions_plain(top_e, 64, 36)
     assert torch.equal(pos, want_pos) and torch.equal(keep, want_keep)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch/`` (nor
-``chip_smoke.py``, which drives it on the card, nor the port's examples
+``chip_smoke.py``, which times its kernels on the card, nor the child
+script of the card tests ``tests/card_child.py``, nor the port's examples
 ``examples/torch_*.py``) imports the JAX package ``repro`` or ``jax``,
 at module level or inside a function."""
 import ast
@@ -26,7 +27,8 @@ def forbidden(module: str) -> bool:
 
 
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "examples").glob("torch_*.py")) + \
+    [ROOT / "chip_smoke.py", ROOT / "tests" / "card_child.py"]
 
 
 def test_the_walk_sees_the_whole_port():
@@ -46,7 +48,8 @@ def test_the_walk_sees_the_whole_port():
                  "src/repro_torch/models/mamba.py",
                  "src/repro_torch/models/rwkv6.py",
                  "examples/torch_schedule_search.py",
-                 "examples/torch_serve_lm.py", "chip_smoke.py"):
+                 "examples/torch_serve_lm.py", "chip_smoke.py",
+                 "tests/card_child.py"):
         assert must in names
 
 

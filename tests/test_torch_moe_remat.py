@@ -32,6 +32,71 @@ def _config(dispatch: str, remat: bool = True):
         cfg.moe, dispatch=dispatch))
 
 
+def moe_product_runs(model, batch) -> dict:
+    """How often each MoE layer's two final products run in one
+    plain-route loss and in its backward: the routed experts' combine
+    (the einsum dispatch's (B, S, E*C) x (B, E*C, d) product, the gather
+    dispatch's scatter-add of the weighted slots to their tokens) and
+    the shared experts' output projection, (B*S, d_shared) x (d_shared,
+    d); and, to show that the count sees the layer checkpoint's
+    recomputation, the routed experts' input products (wi and wg, (E,
+    B*C, d) x (E, d, d_expert)). A dispatch mode counts each when it
+    runs with grad enabled: a forward op or one the recomputation runs
+    again (a gradient's own products run without; the dispatch's input
+    gradient has the combine's signature, the shared experts' input
+    gradient the projection's)."""
+    from repro_torch.models.moe import _capacity
+
+    cfg = model.cfg
+    mc = cfg.moe
+    ec = mc.n_experts * _capacity(batch["tokens"].shape[1], mc)
+    shared = (mc.d_expert * mc.n_shared, cfg.d_model)
+    seen = {what: {"forward": 0, "backward": 0}
+            for what in ("combine", "shared_out", "experts_in")}
+    where = ["forward"]
+
+    def what(packet, args):
+        if packet in (aten.scatter_add, aten.scatter_add_):
+            return "combine"
+        if packet is aten.mm and tuple(args[1].shape) == shared:
+            return "shared_out"
+        if packet is aten.bmm:
+            if args[0].shape[-1] == ec and \
+                    tuple(args[1].shape[-2:]) == (ec, cfg.d_model):
+                return "combine"
+            if tuple(args[1].shape[-2:]) == (cfg.d_model, mc.d_expert):
+                return "experts_in"
+        return None
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kind = what(func._overloadpacket, args)
+            if kind is not None and torch.is_grad_enabled():
+                seen[kind][where[0]] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        loss, _ = model.loss(batch, attention="plain")
+        where[0] = "backward"
+        torch.autograd.grad(loss, list(model.parameters()))
+    return dict(seen, moe_layers=sum(d.moe for d in model.descs),
+                shared_experts=mc.n_shared)
+
+
+def moe_product_faults(runs: dict) -> list[str]:
+    """What ``moe_product_runs`` saw that it should not have: each
+    final product other than once per MoE layer in the forward or at all
+    in the backward (the shared projection only where there are shared
+    experts), the experts' input products not recomputed."""
+    n = runs["moe_layers"]
+    want = {"combine": {"forward": n, "backward": 0},
+            "shared_out": {"forward": n if runs["shared_experts"] else 0,
+                           "backward": 0},
+            "experts_in": {"forward": 2 * n, "backward": 2 * n}}
+    return [f"{k} ran {runs[k]}, not {v}" for k, v in want.items()
+            if runs[k] != v]
+
+
 def _batch(vocab: int) -> dict:
     ids = np.random.default_rng(27).integers(0, vocab, size=(B, S + 1))
     return {"tokens": torch.as_tensor(ids[:, :-1], dtype=torch.int32),
@@ -40,13 +105,12 @@ def _batch(vocab: int) -> dict:
 
 @pytest.mark.parametrize("dispatch", DISPATCHES)
 def test_recomputation_runs_neither_final_product(dispatch):
-    """``chip_smoke.py``'s count of the MoE layers' products, as its
-    train_families phase gates it on the card."""
-    from chip_smoke import moe_product_faults, moe_product_runs
-
+    """Each MoE layer's two final products run once in the forward and
+    not in the backward; the experts' input products run again in the
+    recomputation."""
     cfg = _config(dispatch)
     model = LM(cfg, device="cpu", seed=0).requires_grad_(True)
-    runs = moe_product_runs(model, _batch(cfg.vocab), None)
+    runs = moe_product_runs(model, _batch(cfg.vocab))
     assert runs == {"combine": {"forward": 2, "backward": 0},
                     "shared_out": {"forward": 2, "backward": 0},
                     # The recomputation runs and the count sees it.

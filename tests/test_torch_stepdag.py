@@ -154,6 +154,28 @@ def test_vectorized_random_schedules_are_sim():
     assert ev.evaluate(scheds) == [C.makespan(g, s, m) for s in scheds]
 
 
+def test_train_step_search_through_a_two_host_fleet_is_sim():
+    """qwen2.5-32b's train step at 4 stages under the H100 train-step
+    machine, searched through two in-process evaluation servers: the
+    times of local sim, bit for bit."""
+    from repro_torch.search import MCTSSearch, run_search
+    m = COSTS.train_step_machine()
+    costs = COSTS.costs_from_arch("qwen2.5-32b", 4, tokens_per_chip=4096)
+    g = with_comm_durations(train_step_dag(4, costs), COSTS.LINK_BW)
+    run = dict(budget=60, batch_size=8, machine=m)
+    ref = run_search(g, MCTSSearch(g, 2, seed=0), backend="sim", **run)
+    servers = [E.EvalServer(g, machine=m).start() for _ in range(2)]
+    try:
+        res = run_search(g, MCTSSearch(g, 2, seed=0), backend="rpc",
+                         backend_kwargs={"hosts": [s.addr for s in servers],
+                                         "min_shard": 1, "deadline": 10.0,
+                                         "connect_timeout": 5.0}, **run)
+    finally:
+        for s in servers:
+            s.close()
+    assert len(res.times) > 1 and res.times == ref.times
+
+
 @pytest.mark.parametrize("backend,batch_size", [("sim", 1),
                                                 ("vectorized", 16)])
 def test_seeded_mcts_over_four_layers_is_the_reference(backend, batch_size):

@@ -204,23 +204,17 @@ def test_adamw_plain_route_is_the_chained_step_bit_for_bit(pdt, master,
 
 
 @pytest.mark.parametrize("clip", [None, 1.0])
-def test_adamw_counts_plain_elements_on_the_cpu(clip):
-    """Off the card every element takes the plain route: under a
-    registry ``optim.plain_elems`` counts each parameter once a step,
-    ``optim.kernel_elems`` nothing, and no kernel is launched."""
-    from repro_torch import obs
-
+def test_adamw_launches_no_kernel_on_the_cpu(clip):
+    """Off the card every element takes the plain route: two steps
+    launch neither kernel, and each moves every parameter."""
     p0, grads, _, popt = adam_case(False, clip, sched=False)
     tp = {k: torch.from_numpy(v) for k, v in p0.items()}
     ts = popt.init(tp)
     launched = (adamw_k.sumsq.launches, adamw_k.update.launches)
-    tel = obs.Telemetry()
-    with obs.use(tel):
-        for g in grads[:2]:
-            popt.step({k: torch.from_numpy(v) for k, v in g.items()}, ts, tp)
-    n = sum(int(np.prod(s)) for s in SHAPES.values())
-    assert tel.counters() == {"optim.kernel_elems": 0,
-                              "optim.plain_elems": 2 * n}
+    for g in grads[:2]:
+        before = {k: v.clone() for k, v in tp.items()}
+        popt.step({k: torch.from_numpy(v) for k, v in g.items()}, ts, tp)
+        assert all(not torch.equal(tp[k], before[k]) for k in tp)
     assert (adamw_k.sumsq.launches, adamw_k.update.launches) == launched
 
 
@@ -484,9 +478,8 @@ def test_step_spans_and_moe_counters(monkeypatch, remat, dispatch,
     counters equal a direct count of ``_positions``' ``keep`` in the
     same forward (``moe.load_max`` the busiest expert's token choices of
     each layer), once, though the layer checkpoint's recomputation
-    routes again; the optimizer counts every parameter on the plain
-    route and none on the kernel's, and the slot positions every routed
-    choice; with the disabled registry nothing is counted."""
+    routes again, and nothing else is counted; with the disabled
+    registry nothing is counted."""
     from repro_torch import obs
     from repro_torch.models import moe
 
@@ -531,9 +524,6 @@ def test_step_spans_and_moe_counters(monkeypatch, remat, dispatch,
         make_train_step(m, opt, microbatches)(p, opt.init(p), tb)
     # With remat the checkpoint routes each layer again in the backward.
     assert len(keeps) == cfg.n_layers * microbatches * (2 if remat else 1)
-    want.update({"optim.kernel_elems": 0, "optim.plain_elems": sum(
-        t.numel() for t in p.values()), "moe.positions_kernel": 0,
-        "moe.positions_plain": want["moe.routed"]})
     assert tel.counters() == want
     spans = tel.spans_by_name()
     assert {k: v["count"] for k, v in spans.items()} == {
