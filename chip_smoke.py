@@ -5,9 +5,10 @@ where there is one, a PyTorch library call, at the shapes the
 benchmark's cells run, beside its bound (bytes or flops over the card's
 data-sheet peak).
 
-Usage: python3 chip_smoke.py                (from the repository root)
-       python3 chip_smoke.py --adamw        (that phase alone)
-       python3 chip_smoke.py --positions    (that phase alone)
+Usage: python3 chip_smoke.py                    (from the repository root)
+       python3 chip_smoke.py --adamw            (that phase alone)
+       python3 chip_smoke.py --positions        (that phase alone)
+       python3 chip_smoke.py --train-attention  (that phase alone)
 
 Correctness on the card is ``python -m pytest -m cuda
 tests/test_torch_cuda.py``; the port's end-to-end measurement is
@@ -47,9 +48,12 @@ tests/test_torch_cuda.py``; the port's end-to-end measurement is
              gated and timed; ell_spmv and pack launched), LM.prefill at
              the prefill cell's shape (one flash and one slot-position
              launch a layer), one make_train_step step at train-4k's
-             and at train-8k's (no flash launch, two slot-position
-             launches a MoE layer, one sum of squares a leaf and the
-             norm's finish, one update a leaf); other counts fail
+             and at train-8k's (no flash launch, two forward launches
+             of the training attention a layer, the forward and the
+             checkpoint's recompute, and one of each of its backward
+             passes, two slot-position launches a MoE layer, one sum of
+             squares a leaf and the norm's finish, one update a leaf);
+             other counts fail
   adamw      AdamW's two kernels (csrc/adamw.cu) at deepseek-moe-16b's
              55 leaves with 4 of its 28 layers (the train-4k cell), in a
              process of its own: each leaf's sum of squares against
@@ -68,12 +72,24 @@ tests/test_torch_cuda.py``; the port's end-to-end measurement is
              bytes an entry bound; ``_positions`` on DTensors of a
              one-rank NCCL mesh (sharded on B, replicated: the kernel;
              sharded on S: refused)
+  train_attention
+             the training attention's kernels
+             (csrc/flash_attention_train.cu) at the two train cells'
+             shapes (TRAIN_ATTN), in a process of its own: the forward
+             and backward through the autograd Function against the
+             streaming softmax's autograd, every element of o, dq, dk
+             and dv (within TRAIN_ATTN_TOL, else a failure); medians,
+             L2 flushed, of
+             the forward and backward together and of each launch
+             alone, of the streaming route and of SDPA's forward and
+             backward (the library yardstick), beside the bound: the
+             work 6 (D_QK + D_V) FLOPs a causal pair at the bf16 peak
 
 Then the card's ``name, power.limit``, one ``{"kernels": [...]}`` line
 with an entry for each of ell_spmv, pack, flash_attention, ell_onehot,
-adamw and moe_positions (its launches on each main path that launched
-it, ms, plain ms, bound ms, library ms where there is a library call,
-the worst error) and, last, ``{"ok": true, "device":
+adamw, moe_positions and flash_attention_train (its launches on each
+main path that launched it, ms, plain ms, bound ms, library ms where
+there is a library call, the worst error) and, last, ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before the last line. Without CUDA
 the script exits non-zero and prints no result.
 """
@@ -140,6 +156,23 @@ ADAMW_TOL = 1e-6
 POSITIONS = {"shapes": [(1, 4096, 6), (1, 8192, 6), (4, 1024, 6)],
              "experts": 64, "iters": 200, "plain_iters": 20, "seed": 0,
              "timeout_s": 300}
+# The train_attention phase: csrc/flash_attention_train.cu at (B, S, H,
+# D_QK, D_V) of the benchmark's train-4k (deepseek-moe-16b's 16 heads of
+# 128) and train-8k (Moonlight's latent attention, 16 heads of 192 / 128)
+# cells. Its work: causal pairs B H S (S + 1) / 2, 2 (D_QK + D_V) FLOPs a
+# pair forward and 4 (D_QK + D_V) backward (the train_mla.mfu attention
+# term); what the kernels run besides (the recompute of S and dP, P and
+# dS split into two bf16 products) is reported as ``kernel_flops``. The
+# kernel route is held to the streaming route element by element, as the
+# card tests hold it: |got - ref| <= TRAIN_ATTN_TOL[0] |ref| +
+# TRAIN_ATTN_TOL[1] max |ref| for every element of o, dq, dk and dv. Both
+# routes round an f32-accurate value once to bf16, so they differ by at
+# most one bf16 step (2^-7 of a power of two, less above it); the rest is
+# their f32 sums in other orders.
+TRAIN_ATTN = {"shapes": {"train_4k": (1, 4096, 16, 128, 128),
+                         "train_8k": (1, 8192, 16, 192, 128)},
+              "iters": 10, "plain_iters": 3, "seed": 0, "timeout_s": 600}
+TRAIN_ATTN_TOL = (2 ** -7, 1e-4)
 
 
 def emit(phase: str, **fields) -> None:
@@ -257,6 +290,15 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     """(max abs error, max abs error / max |ref|)."""
     err = float((got.float() - ref.float()).abs().max())
     return err, err / (float(ref.float().abs().max()) + 1e-30)
+
+
+def worst_ratio(got: torch.Tensor, ref: torch.Tensor, rel: float,
+                floor: float) -> float:
+    """max |got - ref| / (rel |ref| + floor max |ref|) over the elements:
+    above 1 where an element is beyond its limit."""
+    got, ref = got.double(), ref.double()
+    lim = rel * ref.abs() + floor * ref.abs().max()
+    return float(((got - ref).abs() / lim).max())
 
 
 def csr_of(vals_t: torch.Tensor, cols_t: torch.Tensor, n_cols: int):
@@ -690,6 +732,7 @@ def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels.adamw import kernel as adamw_k
     from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import train as ft
     from repro_torch.kernels.moe_positions import kernel as positions_k
     from repro_torch.kernels.pack import kernel as pack_k
     from repro_torch.kernels.spmv import kernel as spmv_k
@@ -698,7 +741,9 @@ def kernel_counters() -> dict:
             "flash_attention": fa_k.flash_attention,
             "ell_onehot": spmv_k.ell_onehot,
             "adamw_sumsq": adamw_k.sumsq, "adamw_update": adamw_k.update,
-            "moe_positions": positions_k.positions}
+            "moe_positions": positions_k.positions,
+            "flash_train_fwd": ft.forward, "flash_train_dq": ft.backward_dq,
+            "flash_train_dkdv": ft.backward_dkdv}
 
 
 def counted(run) -> tuple:
@@ -738,7 +783,8 @@ def prefill_path(dev) -> dict:
     (logits, _), launches = counted(
         lambda: model.prefill(batch["tokens"], path["seq"]))
     want = {"flash_attention": path["n_layers"],
-            "moe_positions": moe_layers}
+            "moe_positions": moe_layers, "flash_train_fwd": 0,
+            "flash_train_dq": 0, "flash_train_dkdv": 0}
     if not bool(torch.isfinite(logits).all()) or any(
             launches[k] != n for k, n in want.items()):
         raise AssertionError(f"prefill path: {launches}, {want} wanted, "
@@ -747,10 +793,12 @@ def prefill_path(dev) -> dict:
 
 
 def train_path(name: str, dev) -> dict:
-    """One step of make_train_step under the cells' AdamW: the plain
-    attention route (no flash launch), one slot-position launch a MoE
-    layer in the forward and one in the checkpoint's recompute, one sum
-    of squares a leaf and the norm's finish, one update a leaf."""
+    """One step of make_train_step under the cells' AdamW: the training
+    attention's kernels (no launch of the served flash kernel), a forward
+    launch a layer in the forward and one in the checkpoint's recompute
+    and one of each backward pass a layer, one slot-position launch a
+    MoE layer in the forward and one in the recompute, one sum of squares
+    a leaf and the norm's finish, one update a leaf."""
     from repro_torch.optim.adamw import AdamW, warmup_cosine
     from repro_torch.train.step import make_train_step
 
@@ -762,9 +810,12 @@ def train_path(name: str, dev) -> dict:
     params = dict(model.named_parameters())
     state = opt.init(params)
     (_, _, met), launches = counted(lambda: step(params, state, batch))
-    want = {"flash_attention": 0,
-            "moe_positions": moe_layers * (2 if model.cfg.remat else 1),
-            "adamw_sumsq": len(params) + 1, "adamw_update": len(params)}
+    passes = 2 if model.cfg.remat else 1
+    layers = sum(d.kind == "attn" for d in model.descs)
+    want = {"flash_attention": 0, "moe_positions": moe_layers * passes,
+            "adamw_sumsq": len(params) + 1, "adamw_update": len(params),
+            "flash_train_fwd": layers * passes, "flash_train_dq": layers,
+            "flash_train_dkdv": layers}
     if not bool(torch.isfinite(met["loss"])) or any(
             launches[k] != n for k, n in want.items()):
         raise AssertionError(f"{name} path: {launches}, {want} wanted, "
@@ -1037,14 +1088,113 @@ def child_main(run, source: str) -> int:
     return 0
 
 
+def train_attention_run(dev) -> dict:
+    """The train_attention phase (module docstring) at TRAIN_ATTN's
+    shapes: the autograd Function's output and gradients against the
+    streaming route's on the same operands, element by element (an
+    element beyond TRAIN_ATTN_TOL fails; ``worst`` is each output's
+    largest |got - ref| over its limit), then CUDA-event medians, the L2
+    flushed before each call, of the forward and backward together, each
+    launch alone, the streaming route and SDPA, beside the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import train as ft
+    from repro_torch.models import attention as attn
+
+    out = []
+    for cell, (b, s, h, d_qk, d_v) in TRAIN_ATTN["shapes"].items():
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_ATTN["seed"])
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev
+                                   ).to(torch.bfloat16)
+                       for d in (d_qk, d_qk, d_v, d_v))
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        scale = attn.q_scale(d_qk, torch.bfloat16)
+        pos = torch.arange(s, device=dev)
+        valid = torch.ones(s, dtype=torch.bool, device=dev)
+
+        def kernel():
+            o = attn.train_attention(*leaves)
+            return (o, *torch.autograd.grad(o, leaves, do))
+
+        def plain():
+            o = attn.streaming_attention(*leaves, pos, pos, valid,
+                                         causal=True)
+            return (o, *torch.autograd.grad(o, leaves, do))
+
+        if not attn.trains_on_kernel(*leaves):
+            raise AssertionError(f"train_attention {cell}: not on the "
+                                 "kernel route")
+        got, ref = ([t.detach() for t in run()] for run in (kernel, plain))
+        torch.cuda.synchronize()
+        errs = {name: rel_err(a, r) for name, a, r in
+                zip(("o", "dq", "dk", "dv"), got, ref)}
+        worst = {name: worst_ratio(a, r, *TRAIN_ATTN_TOL) for name, a, r
+                 in zip(("o", "dq", "dk", "dv"), got, ref)}
+        if not all(w <= 1 for w in worst.values()):
+            raise AssertionError(f"train_attention {cell}: worst {worst}")
+        del got, ref
+        q0, k0, v0 = (t.detach() for t in leaves)
+        o, o32, lse = ft.forward(q0, k0, v0, scale)
+        _, delta = ft.backward_dq(q0, k0, v0, do, o32, lse, scale)
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                      for t in leaves)
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               scale=scale)
+            return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+        try:
+            library_ms, library_error = time_cuda(sdpa, iters=10), None
+        except RuntimeError as e:       # a backend that refuses D_V != D_QK
+            library_ms, library_error = None, str(e).splitlines()[0][:200]
+        pairs = b * h * s * (s + 1) / 2
+        flops = 6 * pairs * (d_qk + d_v)
+        kernel_flops = 2 * pairs * ((d_qk + 2 * d_v) +
+                                    (d_qk + d_v + 2 * d_v + 2 * d_qk) +
+                                    (d_qk + d_v + 2 * d_qk))
+        n_bytes = 2 * 2 * sum(t.numel() for t in (q, k, v, do))
+        bnd, by = bound_ms(n_bytes, flops, PEAK_FLOPS)
+        ms = time_cuda(kernel, iters=TRAIN_ATTN["iters"])
+        out.append({
+            "cell": cell, "shape": [b, s, h, d_qk, d_v],
+            "dtype": "bfloat16", "flops": flops,
+            "kernel_flops": kernel_flops, "bytes": n_bytes,
+            "max_abs_err": max(e for e, _ in errs.values()),
+            "rel_err": {name: rel for name, (_, rel) in errs.items()},
+            "worst": worst,
+            "ms": ms,
+            "fwd_ms": time_cuda(lambda: ft.forward(q0, k0, v0, scale),
+                                iters=TRAIN_ATTN["iters"]),
+            "dq_ms": time_cuda(lambda: ft.backward_dq(
+                q0, k0, v0, do, o32, lse, scale), iters=TRAIN_ATTN["iters"]),
+            "dkdv_ms": time_cuda(lambda: ft.backward_dkdv(
+                q0, k0, v0, do, lse, delta, scale),
+                iters=TRAIN_ATTN["iters"]),
+            "plain_ms": time_cuda(plain, iters=TRAIN_ATTN["plain_iters"]),
+            "library_ms": library_ms,
+            "library_call": "scaled_dot_product_attention(is_causal=True) "
+                            "forward and backward",
+            "library_error": library_error,
+            "bound_ms": bnd, "bound_by": by,
+            "kernel_tflops_per_s": kernel_flops / ms / 1e9})
+        del o, o32, lse, delta, leaves, q, k, v, do, q0, k0, v0
+        torch.cuda.empty_cache()
+    return {"shapes": out}
+
+
 def kernel_table(kern: dict, adamw: dict, positions: dict,
-                 by_path: dict) -> list:
+                 train_attention: dict, by_path: dict) -> list:
     """One entry a kernel: its source, what it replaces in the JAX
     package, its launches on each main path that launched it, ms, plain
     ms, bound ms and library ms (summed over its calls; None where a call
     has none), the worst error, and what else its calls measured."""
     def entry(name, source, replaces, calls, summed=(), **extra):
-        counts = {"adamw": ("adamw_sumsq", "adamw_update")}.get(
+        counts = {"adamw": ("adamw_sumsq", "adamw_update"),
+                  "flash_attention_train": ("flash_train_fwd",
+                                            "flash_train_dq",
+                                            "flash_train_dkdv")}.get(
             name, (name,))
         return {"name": name, "source": source, "replaces": replaces,
                 "launches_by_path": {p: {k: n[k] for k in counts}
@@ -1103,6 +1253,16 @@ def kernel_table(kern: dict, adamw: dict, positions: dict,
               shapes=[{k: r[k] for k in ("shape", "ms", "path_ms",
                                          "floor_ms", "plain_ms",
                                          "bound_ms")} for r in rows]),
+        entry("flash_attention_train",
+              "src/repro_torch/csrc/flash_attention_train.cu",
+              "none: the JAX package trains attention through its XLA "
+              "streaming softmax (its Pallas kernel has no backward)",
+              train_attention["shapes"],
+              shapes=[{k: r[k] for k in (
+                  "cell", "shape", "ms", "fwd_ms", "dq_ms", "dkdv_ms",
+                  "plain_ms", "library_ms", "library_error", "bound_ms",
+                  "kernel_tflops_per_s", "rel_err", "worst")}
+                  for r in train_attention["shapes"]]),
     ]
 
 
@@ -1163,10 +1323,13 @@ def main() -> int:
     emit("adamw", **adamw)
     positions = phase_child("--positions", POSITIONS["timeout_s"])
     emit("positions", **positions)
+    train_attention = phase_child("--train-attention",
+                                  TRAIN_ATTN["timeout_s"])
+    emit("train_attention", **train_attention)
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernel_table(kern, adamw, positions,
-                                              by_path)}), flush=True)
+    print(json.dumps({"kernels": kernel_table(
+        kern, adamw, positions, train_attention, by_path)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1178,4 +1341,6 @@ if __name__ == "__main__":
         sys.exit(child_main(adamw_run, "adamw"))
     if sys.argv[1:] == ["--positions"]:
         sys.exit(child_main(positions_run, "moe_positions"))
+    if sys.argv[1:] == ["--train-attention"]:
+        sys.exit(child_main(train_attention_run, "flash_attention_train"))
     sys.exit(main())

@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("ell_spmv", "pack", "flash_attention", "flash_attention_bf16",
-           "ell_onehot", "launch_floor", "adamw", "moe_positions")
+           "flash_attention_train", "ell_onehot", "launch_floor", "adamw",
+           "moe_positions")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -23,10 +23,12 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def float64_attention(a, dtype: torch.dtype, causal: bool) -> torch.Tensor:
     """The card tests' oracle: a float64 softmax on the CPU of the inputs
-    ``a`` (q, k, v as float32 numpy arrays, (B, H, S, D), k and v with
-    H / g heads, q head h reading kv head h // g) rounded to ``dtype``
-    first, scaled by the true head dim, causal mask right-aligned."""
-    q, k, v = (torch.from_numpy(t).to(dtype).double() for t in a)
+    ``a`` (q, k, v as float32 numpy arrays or CPU tensors, (B, H, S, D),
+    k and v with H / g heads, q head h reading kv head h // g, v's D may
+    differ from q's) rounded to ``dtype`` first, scaled by the true head
+    dim, causal mask right-aligned. Float64 tensors that need a gradient
+    give one through it (with ``dtype`` float64)."""
+    q, k, v = (torch.as_tensor(t).to(dtype).double() for t in a)
     g = q.shape[1] // k.shape[1]
     k, v = (t.repeat_interleave(g, dim=1) for t in (k, v))
     s = q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5

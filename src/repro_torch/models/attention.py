@@ -1,19 +1,32 @@
 """GQA attention: projections, the padded head layout, prefill through the
-Hopper flash-attention kernel, the streaming softmax, and decode.
+Hopper flash-attention kernel, training through the training kernels,
+the streaming softmax, and decode.
 
 Port of ``repro/models/attention.py``. The reference runs every shape
 through its XLA streaming softmax; its Pallas kernel computes the same
-contraction but no model calls it. Here causal self-attention at
-positions ``arange(S)`` with every key valid, no window and no softcap
-(every prefill and forward call of the dense configs) goes through
-``kernels.flash_attention.ops.mha``: on a CUDA tensor that launches the
-kernel (csrc/flash_attention.cu) or raises, on a CPU tensor it runs the
-kernel's plain version. :func:`streaming_attention` is the plain route:
-it serves the CPU when asked for, and the shapes the kernel does not
-take (windows, softcap, cross-attention, masked keys, given positions).
-It is also the route that trains: the kernel has no backward, so
-``mha`` raises on a CUDA operand that needs a gradient, and under
-autograd each KV block of :func:`streaming_attention` is checkpointed
+contraction but no model calls it, and has no backward. Here causal
+self-attention at positions ``arange(S)`` with every key valid, no
+window and no softcap takes a kernel where its operands allow:
+
+- under autograd on the card (:func:`trains_on_kernel`: plain CUDA
+  tensors that need a gradient, one kv head a q head, bf16, (D_QK, D_V)
+  one of ``kernels.flash_attention.train.TEMPLATES`` and S a multiple of
+  its blocks) :func:`train_attention`, csrc/flash_attention_train.cu's
+  forward and FlashAttention-2 backward, whatever the ``attention``
+  route; the train step's ``attention="plain"`` and latent attention
+  come here;
+- otherwise, on the ``"flash"`` route (every prefill and forward call of
+  the dense configs), ``kernels.flash_attention.ops.mha``: on a CUDA
+  tensor that launches the served kernel (csrc/flash_attention_bf16.cu
+  or csrc/flash_attention.cu) or raises, on a CPU tensor it runs the
+  kernel's plain version. ``mha`` has no backward: it raises on a CUDA
+  operand that needs a gradient.
+
+:func:`streaming_attention` is the plain route and the training
+kernels' plain version: it serves the CPU, the shapes no kernel takes
+(windows, softcap, cross-attention, masked keys, given positions, g > 1
+under autograd, other head widths, float32) and ``attention="plain"``
+off autograd. Under autograd each of its KV blocks is checkpointed
 (recomputed in the backward pass), as the reference's is.
 
 Layouts follow the reference: activations (B, S, H, Dh); the stored-KV
@@ -32,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import obs
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import constrain, unshard_grad
+from repro_torch.kernels.flash_attention import train as flash_train
 from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm, rope
@@ -271,26 +285,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     return o.transpose(1, 2)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def trains_on_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int | None = None,
+                     softcap: float | None = None) -> bool:
+    """Whether causal self-attention of q, k, v at positions
+    ``arange(S)``, every key valid, takes :func:`train_attention`: no
+    window and no softcap, grad enabled and an operand that needs it,
+    plain tensors (no DTensor) on a CUDA device, and shapes the kernels
+    take (``flash_train.takes``: bf16, q heads = kv heads, (D_QK, D_V)
+    one of their templates, S a multiple of their blocks). Decided from
+    the operands alone."""
+    return (window is None and softcap is None and
+            torch.is_grad_enabled() and
+            any(t.requires_grad for t in (q, k, v)) and
+            not any(isinstance(t, DTensor) for t in (q, k, v)) and
+            all(_on_card(t) for t in (q, k, v)) and
+            flash_train.takes(q, k, v))
+
+
+def train_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention at positions ``arange(S)`` through the
+    training kernels (``flash_train.attention``, an autograd Function).
+    q, k: (B, S, H, D_QK), v: (B, S, H, D_V) as they lie; the scale is
+    :func:`q_scale`'s; the output is (B, S, H, D_V) in q's dtype."""
+    return flash_train.attention(q, k, v, q_scale(q.shape[-1], q.dtype))
+
+
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    cfg: ModelConfig, positions: torch.Tensor | None, *,
                    causal: bool, attention: str = "flash") -> torch.Tensor:
     """Self-attention over stored-width k, v. ``positions=None`` means
-    ``arange(S)``: with ``attention="flash"``, causal, no window and no
-    softcap that goes through the kernel; everything else through
-    :func:`streaming_attention`."""
+    ``arange(S)``: causal, it goes through :func:`train_attention` where
+    :func:`trains_on_kernel` says so, else with ``attention="flash"``, no
+    window and no softcap through the served kernel; everything else
+    through :func:`streaming_attention`."""
     if attention not in ROUTES:
         raise ValueError(f"attention must be one of {ROUTES}, "
                          f"got {attention!r}")
-    if attention == "flash" and positions is None and causal and \
-            cfg.attn_window is None and cfg.attn_logit_softcap is None:
-        return flash_attention(q, k, v)
+    window, softcap = cfg.attn_window, cfg.attn_logit_softcap
+    if positions is None and causal:
+        if trains_on_kernel(q, k, v, window=window, softcap=softcap):
+            return train_attention(q, k, v)
+        if attention == "flash" and window is None and softcap is None:
+            return flash_attention(q, k, v)
     s = q.shape[1]
     if positions is None:
         positions = torch.arange(s, device=q.device)
     return streaming_attention(
         q, k, v, positions, positions,
         torch.ones(s, dtype=torch.bool, device=q.device), causal=causal,
-        window=cfg.attn_window, softcap=cfg.attn_logit_softcap)
+        window=window, softcap=softcap)
 
 
 def attn_forward(p, x: torch.Tensor, cfg: ModelConfig,
@@ -396,12 +445,14 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, pos: int,
 # k_pe one rotary key part a token that every head shares; [k_nope | v]
 # = c wkvb, (B, S, H, dn + dv). Scores (q_nope . k_nope + q_pe . k_pe)
 # (dn + dr) ** -0.5, causal softmax, o = P v (B, S, H, dv), then wo.
-# Training and prefill attend through the streaming softmax over the
-# widened keys (the flash kernel takes one head width for q, k and v);
-# the decode cache holds the latent (c and the rotated k_pe, r + dr
-# values a token) and decode reads it with wkvb absorbed into the query
-# and the output. Each call is a span ``attn.mla`` with its device
-# interval, not opened again by a layer checkpoint's recomputation.
+# Training on the card attends through the training kernels at (D_QK,
+# D_V) = (dn + dr, dv) over the widened keys (:func:`train_attention`);
+# prefill and the CPU through the streaming softmax (the served kernel
+# takes one head width for q, k and v); the decode cache holds the
+# latent (c and the rotated k_pe, r + dr values a token) and decode
+# reads it with wkvb absorbed into the query and the output. Each call
+# is a span ``attn.mla`` with its device interval, not opened again by a
+# layer checkpoint's recomputation.
 
 def mla_specs(cfg: ModelConfig) -> dict:
     """Every matrix drawn at 1 / sqrt(its fan-in): d_model for wq and
@@ -461,9 +512,13 @@ def mla_forward(p, x: torch.Tensor, cfg: ModelConfig,
                                          -1)
         q = torch.cat([q_nope, q_pe], -1)
         k = torch.cat([k_nope, k_pe[:, :, None].expand(-1, -1, h, -1)], -1)
-        o = streaming_attention(q, k, v, pos, pos,
-                                torch.ones(s, dtype=torch.bool,
-                                           device=x.device), causal=True)
+        if positions is None and trains_on_kernel(q, k, v):
+            o = train_attention(q, k, v)
+        else:
+            o = streaming_attention(q, k, v, pos, pos,
+                                    torch.ones(s, dtype=torch.bool,
+                                               device=x.device),
+                                    causal=True)
         return _mla_out(p, o), c, k_pe
 
 

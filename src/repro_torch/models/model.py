@@ -343,10 +343,12 @@ class LM(nn.Module):
                        rwkv_chunk: int | None = None):
         """The reference's ``forward``: (logits over the text positions,
         the decoder's summed MoE aux loss). Causal self-attention goes
-        through the flash kernel unless ``attention="plain"`` (the
-        streaming softmax, the route that trains: the kernel has no
-        backward, and ``mha`` raises on a CUDA operand that needs a
-        gradient); RWKV layers run the chunked form when ``rwkv_chunk``
+        through the served flash kernel unless ``attention="plain"``
+        (the streaming softmax); under autograd on the card either route
+        takes the training kernels where the operands allow
+        (``attention.trains_on_kernel``), and elsewhere ``mha`` raises on
+        a CUDA operand that needs a gradient (the served kernel has no
+        backward); RWKV layers run the chunked form when ``rwkv_chunk``
         is given."""
         memory = self._encode(frontend)
         x, n_front = self._embed_inputs(tokens, frontend)

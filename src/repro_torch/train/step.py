@@ -11,8 +11,11 @@ the optimizer state is updated in place too (``optim/adamw.py``). A
 checkpoint, a copy) is first copied into the module. So one state cannot
 be stepped twice from the same values unless the caller passes copies.
 
-Attention runs on the plain route (the streaming softmax, with the
-reference's nested remat); the flash kernel has no backward.
+Attention runs on the plain route: on the card, where its operands
+allow, the training kernels (``models/attention.py:trains_on_kernel``,
+csrc/flash_attention_train.cu's forward and backward), elsewhere the
+streaming softmax with the reference's nested remat; the served flash
+kernel has no backward.
 :func:`train_shardings` gives the placements of parameters, optimizer
 state and batch on a mesh, and :func:`jit_train_step` the step over
 DTensors (nothing is compiled: the name is the reference's). Every

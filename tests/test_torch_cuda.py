@@ -1038,6 +1038,202 @@ def test_mha_refuses_a_cuda_operand_that_needs_grad(dev):
     assert out.grad_fn is None and bool(torch.isfinite(out).all())
 
 
+# -- the training kernels (csrc/flash_attention_train.cu) ---------------------
+
+# Both (D_QK, D_V) templates at reduced S: ((D_QK, D_V), (B, S, H)).
+TRAIN_ATTN_CASES = [(dims, shape) for dims in ((128, 128), (192, 128))
+                    for shape in ((1, 1024, 4), (2, 512, 4))]
+# SHA-256 of mha's bf16 output at the prefill cell's shape from numpy
+# seed 0 (served_digest), as the served kernel gave it before the
+# training kernels were added: ``served_digest`` run on the tree of the
+# commit before them and on the tree with them gave this value on both
+# (NVIDIA H100 80GB HBM3, 700 W).
+SERVED_DIGEST = ("ac3d95b2a8b2f75adb670896ab1a3042"
+                 "f479f92bb2dfb088bb60a122eca0c738")
+
+
+def _train_case(dev, dims, shape, seed=0):
+    """bf16 q, k (B, S, H, D_QK) and v, dO (B, S, H, D_V) on the card,
+    drawn with numpy."""
+    b, s, h = shape
+    rng = np.random.default_rng(seed + sum(dims) + s)
+    return [torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+        for d in (dims[0], dims[0], dims[1], dims[1])]
+
+
+def _train_counts():
+    from repro_torch.kernels.flash_attention import train as ft
+    return (ft.forward.launches, ft.backward_dq.launches,
+            ft.backward_dkdv.launches)
+
+
+def _float64_train(q, k, v, do):
+    """``float64_attention`` of the bf16 values (scale D_QK ** -0.5),
+    each row's log-sum-exp, rowsum(dO o) and the gradients by float64
+    autograd: (o, lse (B, H, S), delta (B, H, S), dq, dk, dv), the rest
+    (B, S, H, D), on the CPU."""
+    from repro_torch.kernels.flash_attention.ref import float64_attention
+    leaves = [t.cpu().double().transpose(1, 2).detach().requires_grad_()
+              for t in (q, k, v)]
+    o = float64_attention(leaves, torch.float64, True)       # (B, H, S, Dv)
+    dod = do.cpu().double().transpose(1, 2)
+    o.backward(dod)
+    s = leaves[0] @ leaves[1].transpose(-1, -2) * q.shape[-1] ** -0.5
+    n = s.shape[-1]
+    later = torch.ones(n, n, dtype=torch.bool).triu(1)
+    lse = torch.logsumexp(s.masked_fill(later, float("-inf")), -1).detach()
+    delta = (dod * o).sum(-1).detach()
+    return (o.detach().transpose(1, 2), lse, delta,
+            *(t.grad.transpose(1, 2) for t in leaves))
+
+
+def _within(got: torch.Tensor, ref: torch.Tensor, rel: float,
+            floor: float) -> bool:
+    """|got - ref| <= rel |ref| + floor max |ref| everywhere."""
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    return bool(((got - ref).abs() <=
+                 rel * ref.abs() + floor * ref.abs().max()).all())
+
+
+@pytest.mark.parametrize("dims,shape", TRAIN_ATTN_CASES)
+def test_flash_train_kernels_match_float64(dev, dims, shape):
+    """The forward's o and LSE and the backward's dq, dk and dv, one
+    launch each, against a float64 evaluation of the same attention of
+    the same bf16 values, the gradients by float64 autograd. o and the
+    gradients within bf16's rounding of each value (2^-8 of it) plus
+    1e-4 of the largest (the f32 sums' order); o's f32 copy within 2e-5
+    of its largest, which a P rounded to one bf16 would miss (P enters
+    P.V as hi + lo); the LSE within 1e-5 and D = rowsum(dO o) within
+    1e-5 of their largest."""
+    from repro_torch.kernels.flash_attention import train as ft
+    q, k, v, do = _train_case(dev, dims, shape)
+    scale = dims[0] ** -0.5
+    before = _train_counts()
+    o, o32, lse = ft.forward(q, k, v, scale)
+    dq, delta = ft.backward_dq(q, k, v, do, o32, lse, scale)
+    dk, dv = ft.backward_dkdv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert _train_counts() == tuple(n + 1 for n in before)
+    ref_o, ref_lse, ref_delta, *ref_grads = _float64_train(q, k, v, do)
+    assert _within(o, ref_o, 2 ** -8, 1e-4)
+    assert _within(o32, ref_o, 0.0, 2e-5)
+    assert _within(lse, ref_lse, 0.0, 1e-5)
+    assert _within(delta, ref_delta, 0.0, 1e-5)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_grads):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        assert _within(got, ref, 2 ** -8, 1e-4), name
+
+
+@pytest.mark.parametrize("dims,shape", TRAIN_ATTN_CASES)
+def test_flash_train_route_matches_streaming_on_card(dev, dims, shape):
+    """``train_attention`` (the autograd Function as the model calls it,
+    scale ``q_scale``'s) against ``streaming_attention``'s autograd on
+    the card, the same bf16 operands and dO: the output and each
+    gradient within 2^-7 of each value plus 1e-4 of the largest. Each
+    route computes an f32-accurate value and rounds it once to bf16
+    (half an ulp, 2^-9 of the value, each); the rest is their f32 sums
+    in other orders. The kernel route launches each kernel once, the
+    streaming route none."""
+    from repro_torch.models import attention as attn
+    q, k, v, do = _train_case(dev, dims, shape, seed=1)
+    s = shape[1]
+    pos = torch.arange(s, device=dev)
+    outs = []
+    for kernel in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = _train_counts()
+        if kernel:
+            assert attn.trains_on_kernel(*leaves)
+            o = attn.train_attention(*leaves)
+        else:
+            o = attn.streaming_attention(
+                *leaves, pos, pos, torch.ones(s, dtype=torch.bool,
+                                              device=dev), causal=True)
+        outs.append((o, *torch.autograd.grad(o, leaves, do)))
+        torch.cuda.synchronize()
+        assert _train_counts() == tuple(n + kernel for n in before)
+    for name, got, ref in zip(("o", "dq", "dk", "dv"), *outs):
+        assert got.dtype == torch.bfloat16
+        assert _within(got, ref, 2 ** -7, 1e-4), name
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "moonlight-16b-a3b"])
+def test_flash_train_route_engages_in_a_checkpointed_layer(dev, arch):
+    """One attention layer of each train cell's configuration at its
+    published widths (deepseek-moe-16b: 16 heads of 128 through
+    ``attn_forward`` on the train step's ``attention="plain"``;
+    Moonlight: latent attention, 192 / 128, through ``mla_forward``),
+    1 x 512 tokens in bf16 under a layer checkpoint as the train step
+    runs it: two forward launches (the forward and the recompute), one
+    of each backward pass, none of the served kernel; every weight's
+    gradient finite and the deterministic kernels' gradients the same
+    bits in a second run."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.models import attention as attn
+    from repro_torch.models import params as prm
+    cfg = get_config(arch)
+    specs = attn.attention_specs(cfg)
+    p = prm.Params(specs, device=dev, dtype=torch.float32)
+    prm.init(p, specs, torch.Generator(device=dev).manual_seed(0))
+    p.requires_grad_(True)
+    x = torch.randn((1, 512, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1)
+                    ).to(torch.bfloat16)
+
+    def layer(t):
+        if cfg.mla is not None:
+            return attn.mla_forward(p, t, cfg)[0]
+        return attn.attn_forward(p, t, cfg, None, attention="plain")
+
+    runs = []
+    for _ in range(2):
+        before, served = _train_counts(), fa_k.flash_attention.launches
+        y = checkpoint(layer, x, use_reentrant=False)
+        runs.append(torch.autograd.grad(y.float().square().mean(),
+                                        list(p.parameters())))
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(_train_counts(), before)) == \
+            (2, 1, 1)
+        assert fa_k.flash_attention.launches == served
+    for a, b in zip(*runs):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+
+
+def served_digest(dev) -> str:
+    """SHA-256 of mha's bf16 output (B, H, S, D) at the prefill cell's
+    shape, 4 x 1,024 tokens and 16 heads of 128, from numpy seed 0,
+    under no_grad."""
+    import hashlib
+
+    from repro_torch.kernels.flash_attention.ops import mha
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (4, 16, 1024, 128)).astype(np.float32)).to(dev, torch.bfloat16)
+        for _ in range(3))
+    with torch.no_grad():
+        out = mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    return hashlib.sha256(out.cpu().view(torch.int16).numpy().tobytes()
+                          ).hexdigest()
+
+
+def test_served_flash_output_is_unchanged_and_off_the_training_route(dev):
+    """The served kernel (csrc/flash_attention_bf16.cu through ``mha``)
+    at the prefill cell's shape gives the bits it gave before the
+    training kernels were added (``SERVED_DIGEST``), in one launch and
+    with no launch of the training kernels."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    before, served = _train_counts(), fa_k.flash_attention.launches
+    digest = served_digest(dev)
+    assert fa_k.flash_attention.launches == served + 1
+    assert _train_counts() == before
+    assert digest == SERVED_DIGEST, digest
+
+
 @pytest.mark.parametrize("arch", ["qwen2.5-32b", "moonshot-v1-16b-a3b",
                                   "deepseek-moe-16b", "jamba-v0.1-52b",
                                   "rwkv6-3b", "whisper-tiny",
